@@ -1,0 +1,44 @@
+"""Carry the reference's parameters into the port.
+
+``params_from_jax`` takes the JAX parameter pytree as numpy arrays (for
+example ``jax.tree.map(np.asarray, params)``, done by the caller: this
+module never sees jax) and returns the port's parameters: the same names,
+with the [L, ...] leaves of ``layers`` unstacked into a list of per-layer
+dicts.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def _to_torch(a, device, dtype) -> torch.Tensor:
+    # bf16 numpy arrays (ml_dtypes) have no torch counterpart: go through a
+    # writable f32 copy, which holds every bf16 value exactly
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dtype)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda",
+                    dtype=torch.float32) -> dict:
+    unknown = set(tree) - {"embed", "layers", "final_norm"}
+    if unknown:
+        raise NotImplementedError(f"{cfg.name}: params {sorted(unknown)} are not ported")
+    stacked = tree["layers"]
+    n = len(next(iter(stacked["ln1"].values())))
+    if n != cfg.n_layers:
+        raise ValueError(f"params hold {n} layers, config {cfg.name} has {cfg.n_layers}")
+    conv = lambda a: _to_torch(a, device, dtype)  # noqa: E731
+    return {
+        "embed": _map(tree["embed"], conv),
+        "layers": [_map(stacked, lambda a, i=i: conv(a[i])) for i in range(n)],
+        "final_norm": _map(tree["final_norm"], conv),
+    }
