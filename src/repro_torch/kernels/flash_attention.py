@@ -6,6 +6,10 @@ On CUDA tensors the wrapper launches the hand-written kernel in
 group in device memory); on CPU tensors it runs the plain version
 ``ref.flash_attention_ref``.  ``flash_attention.launches`` counts kernel
 launches.
+
+Where autograd needs a gradient, the launch goes through ``FlashAttentionFn``:
+forward is the kernel, backward the vector-Jacobian product of the plain
+version, recomputed (``ref.plain_vjp``).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import math
 import torch
 
 from . import _build
-from .ref import flash_attention_ref
+from .ref import flash_attention_ref, plain_vjp
 
 HEAD_DIMS = (32, 64, 128)
 # (q dtype, kv dtype) pairs the kernel is instantiated for; the KV cache may
@@ -74,6 +78,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
     sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    opts = (causal, sm_scale, q_offset, window, kv_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, *opts)
+    return _launch(q, k, v, *opts)
+
+
+def _launch(q, k, v, causal, sm_scale, q_offset, window, kv_len) -> torch.Tensor:
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     if b * sq == 0:
         return o
@@ -86,6 +99,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"attention kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
     return o
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel with a gradient (the plain version on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, q_offset, window, kv_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, sm_scale=sm_scale, q_offset=q_offset,
+                        window=window, kv_len=kv_len)
+        if q.device.type == "cpu":
+            return flash_attention_ref(q, k, v, **ctx.opts)
+        return _launch(q, k, v, causal, sm_scale, q_offset, window, kv_len)
+
+    @staticmethod
+    def backward(ctx, do):
+        grads = plain_vjp(lambda q, k, v: flash_attention_ref(q, k, v, **ctx.opts),
+                          ctx.saved_tensors, ctx.needs_input_grad[:3], do)
+        return (*grads, None, None, None, None, None)
 
 
 flash_attention.launches = 0

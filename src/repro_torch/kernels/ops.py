@@ -9,9 +9,12 @@ directly.
 from __future__ import annotations
 
 from .flash_attention import flash_attention
+from .quant import dequant_add, ef_quantize_bucketize, quantize_blocks
 from .rmsnorm import rmsnorm
 
-KERNELS = {"rmsnorm": rmsnorm, "gqa_attention": flash_attention}
+KERNELS = {"rmsnorm": rmsnorm, "gqa_attention": flash_attention,
+           "ef_quantize_bucketize": ef_quantize_bucketize,
+           "quantize_blocks": quantize_blocks, "dequant_add": dequant_add}
 
 
 def launch_counts() -> dict[str, int]:

@@ -3,6 +3,12 @@
 On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/rmsnorm.cu``; on a CPU tensor it runs the plain version
 ``ref.rmsnorm_ref``.  ``rmsnorm.launches`` counts kernel launches.
+
+Where autograd needs a gradient, the launch goes through ``RMSNormFn``:
+forward is the kernel, backward the vector-Jacobian product of the plain
+version, recomputed (``ref.plain_vjp``).  Without it the kernel's output
+would carry no ``grad_fn`` and training would give no gradient upstream of
+the first norm.
 """
 
 from __future__ import annotations
@@ -13,7 +19,7 @@ import functools
 import torch
 
 from . import _build
-from .ref import rmsnorm_ref
+from .ref import plain_vjp, rmsnorm_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,6 +50,13 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Ten
         raise ValueError(f"rmsnorm: w shape {tuple(w.shape)}, expected ({d},)")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("rmsnorm: x and w must be contiguous")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return RMSNormFn.apply(x, w, eps)
+    return _launch(x, w, eps)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    d = x.shape[-1]
     y = torch.empty_like(x)
     n = x.numel() // d if d else 0
     if n == 0:
@@ -55,6 +68,24 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Ten
         raise RuntimeError(f"rmsnorm kernel launch failed with CUDA error {err}")
     rmsnorm.launches += 1
     return y
+
+
+class RMSNormFn(torch.autograd.Function):
+    """The kernel with a gradient (the plain version on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return rmsnorm_ref(x, w, eps=eps)
+        return _launch(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx, dw = plain_vjp(lambda x, w: rmsnorm_ref(x, w, eps=ctx.eps), ctx.saved_tensors,
+                           ctx.needs_input_grad[:2], dy)
+        return dx, dw, None
 
 
 rmsnorm.launches = 0

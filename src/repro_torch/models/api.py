@@ -2,7 +2,8 @@
 for the ``decoder`` family.
 
 ``get_api(cfg)`` returns a ``ModelAPI`` with the reference's five
-functions.  ``init`` takes a seed or a ``torch.Generator`` in place of a
+functions; ``remat`` ("none" or "full") applies to ``loss``, as in the
+reference.  ``init`` takes a seed or a ``torch.Generator`` in place of a
 ``jax.random`` key, and every function works on ``device`` (``cuda`` unless
 the caller asks for the CPU).
 """
@@ -28,7 +29,8 @@ class ModelAPI:
     init_cache: Callable[..., Any]      # (batch, max_seq, dtype) -> cache
 
 
-def get_api(cfg: ModelConfig, compute_dtype=torch.bfloat16, device="cuda") -> ModelAPI:
+def get_api(cfg: ModelConfig, compute_dtype=torch.bfloat16, device="cuda",
+            remat: str = "full") -> ModelAPI:
     transformer.check_supported(cfg)
     dev = resolve_device(device)
     window = cfg.sliding_window
@@ -40,7 +42,8 @@ def get_api(cfg: ModelConfig, compute_dtype=torch.bfloat16, device="cuda") -> Mo
         return transformer.init_params(cfg, gen, device=dev, dtype=dtype)
 
     def loss(params, batch):
-        return transformer.loss_fn(params, batch, cfg, compute_dtype=compute_dtype)
+        return transformer.loss_fn(params, batch, cfg, compute_dtype=compute_dtype,
+                                   remat=remat)
 
     def prefill(params, batch, cache):
         return transformer.prefill(params, batch["tokens"], cfg, cache,

@@ -3,7 +3,9 @@ for dense decoders (qwen2-1.5b).
 
 The reference stacks the layers' params with a leading [L] axis and runs a
 ``lax.scan``; here ``params["layers"]`` is a list of per-layer dicts and the
-forward pass is a Python loop.  The KV cache keeps the reference's
+forward pass is a Python loop.  ``remat="full"`` recomputes each layer in
+the backward pass (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` of the scan body).  The KV cache keeps the reference's
 [L, B, Smax, K, hd] layout and is updated in place.  MoE, MLA,
 ``first_k_dense`` and frontend stubs are not ported yet and are refused.
 """
@@ -11,6 +13,7 @@ forward pass is a Python loop.  The KV cache keeps the reference's
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from . import layers as L
@@ -80,15 +83,22 @@ def forward(
     cache: dict | None = None,       # {"k": [L,B,Smax,K,hd], "v": ...}, updated in place
     cache_index: int | None = None,
     window: int | None = None,
+    remat: str = "none",
 ) -> tuple[torch.Tensor, dict | None]:
     """Returns (hidden [B,S,d], cache).  Dense layers only, so the
     reference's third output (the MoE aux loss) is always zero and dropped."""
+    if remat not in ("none", "full"):
+        raise NotImplementedError(f"remat {remat!r}: the port has 'none' and 'full'")
     b, s = tokens.shape
     base_pos = 0 if cache_index is None else cache_index
     x = L.embed_apply(params["embed"], tokens, cfg, compute_dtype)
     positions = (base_pos + torch.arange(s, device=tokens.device, dtype=torch.int32))
     positions = positions[None, :].expand(b, s)
     for i, lp in enumerate(params["layers"]):
+        if remat == "full" and cache is None and torch.is_grad_enabled():
+            x = checkpoint(_layer_fwd, lp, x, cfg, positions, window=window,
+                           use_reentrant=False)
+            continue
         lcache = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
         x = _layer_fwd(lp, x, cfg, positions, cache=lcache, cache_index=cache_index,
                        window=window)
@@ -103,10 +113,11 @@ def logits_fn(params, hidden, cfg):
 # task heads: loss / prefill / decode
 # ---------------------------------------------------------------------------
 
-def loss_fn(params, batch: dict, cfg: ModelConfig, *, compute_dtype=torch.bfloat16):
-    """Causal LM loss (forward only).  batch: tokens [B,S], labels [B,S]
-    (-100 = masked)."""
-    hidden, _ = forward(params, batch["tokens"], cfg, compute_dtype=compute_dtype)
+def loss_fn(params, batch: dict, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+            remat: str = "full"):
+    """Causal LM loss.  batch: tokens [B,S], labels [B,S] (-100 = masked)."""
+    hidden, _ = forward(params, batch["tokens"], cfg, compute_dtype=compute_dtype,
+                        remat=remat)
     loss = L.masked_xent(logits_fn(params, hidden, cfg), batch["labels"])
     return loss, {"nll": loss}
 

@@ -187,7 +187,9 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     q, k, v = torch.randn(2, 5, 4, 16), torch.randn(2, 9, 2, 16), torch.randn(2, 9, 2, 16)
     got = ops.flash_attention(q, k, v, q_offset=3, kv_len=8, window=4)
     assert torch.equal(got, ref.flash_attention_ref(q, k, v, q_offset=3, kv_len=8, window=4))
-    assert ops.launch_counts() == {"rmsnorm": 0, "gqa_attention": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "gqa_attention": 0,
+                                   "ef_quantize_bucketize": 0, "quantize_blocks": 0,
+                                   "dequant_add": 0}
 
 
 @pytest.mark.parametrize("kwargs,shapes,match", [
