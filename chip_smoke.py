@@ -16,6 +16,13 @@ Phases, each of which must pass (any failed check raises and exits non-zero):
   5. serving at full width: ``Engine`` over all 28 layers of qwen2-1.5b in bf16
      answers 8 requests, with every kernel launch counter read over this phase
      alone;
+  5b. [logits-hybrid] zamba2-2.7b at full width cut to one group (6 Mamba2
+     layers and the shared block): prefill and 4 decode steps on the card
+     (kernels, bf16) against the same weights on the CPU (plain versions, f32);
+  5c. [serve-hybrid] ``Engine`` over all 54 layers of zamba2-2.7b in bf16
+     answers 8 requests, every launch counter read over this phase alone and
+     held to its exact count (RMSNorm 127 and attention 9 per forward, the
+     SSD scan 54 per prefill and none per decode);
   6. [train-check] qwen2-1.5b at full width cut to 2 layers: the EF
      invariant on the card; the gradient sync (bucketing, the CUDA EF kernel,
      write-back) and AdamW on the card against the CPU from the same
@@ -49,12 +56,12 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import qwen2_1_5b  # noqa: E402
+from repro_torch.configs import qwen2_1_5b, zamba2_2_7b  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM, shard_batch  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.models import api as mapi  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import ssm, transformer  # noqa: E402
 from repro_torch.serve import Engine  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.parallel.mesh import ProcessMesh  # noqa: E402
@@ -80,18 +87,37 @@ KERNELS = {
                         "src/repro/kernels/quant.py:24"),
     "dequant_add": ("src/repro_torch/kernels/csrc/quant.cu",
                     "src/repro/kernels/quant.py:32"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd.cu",
+                 "src/repro/kernels/mamba_scan.py:27"),
 }
 # the kernels each main path must launch
 PATH_KERNELS = {"serve": ("rmsnorm", "gqa_attention"),
+                "serve-hybrid": ("rmsnorm", "gqa_attention", "ssd_scan"),
                 "train": ("rmsnorm", "gqa_attention", "ef_quantize_bucketize")}
 
 # bf16 outputs of the kernel and of the plain version round separately from
 # the same f32 math: two bf16 ulps (2^-7 relative) on values of O(1)..O(10)
 RMSNORM_TOL = 2e-2
 ATTENTION_TOL = 2e-2
+# the SSD scan against its plain version on the same inputs, elementwise
+# |got - want| <= tol * (1 + |want|) on y and on the final state: the same f32
+# math summed in another order over 128-step chunks.  Sound kernels read
+# 1.3e-6 on an H100 80GB HBM3 at 700 W; the plain version's outputs rounded
+# to bf16 (the control, checked at the main row) read near 2^-9 and fail.
+# 20x under the reference's own kernel tolerance (tests/test_kernels.py, 2e-3)
+SSD_TOL = 1e-4
 # full-width logits, bf16 on the card vs f32 on the CPU, as a share of the
 # largest |logit|: bf16 rounds activations to 2^-8 at a few dozen places
 LOGITS_REL_TOL = 2e-2
+# [logits-hybrid], zamba2-2.7b at full width cut to one group at seed 0: the
+# card against the CPU's plain versions at the same precision, as a share of
+# the largest |logit|, per step (prefill and each decode step).  Readings on
+# an H100 80GB HBM3 at 700 W: f32 3.07e-6..3.80e-6, held at ~5x, so that a
+# fault in the path (a cache write, the conv state, the ring) cannot hide in
+# rounding; bf16 0.0106..0.0136, two bf16 paths rounding apart as far as the
+# CPU's bf16 alone is from f32 (0.0151..0.0205), held at 1.5x
+HYBRID_F32_TOL = 2e-5
+HYBRID_BF16_TOL = 2e-2
 # [train-check], qwen2-1.5b at full width cut to 2 layers, batch 1 x 64, at
 # seed 0; each limit is set from a reading on an H100 80GB HBM3 at 700 W.
 # (b) The gradient sync and AdamW from the same inputs on both sides, as the
@@ -196,21 +222,24 @@ def phase_rmsnorm(dev, rows: int, d: int) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def _visible_pairs(sq: int, q_offset: int, kv_len: int, window: int | None) -> int:
-    qpos = q_offset + np.arange(sq)[:, None]
-    kpos = np.arange(kv_len)[None, :]
-    vis = kpos <= qpos
+def _visible(sq: int, q_offset: int, kv_len: int, window: int | None, causal: bool,
+             dev=None) -> torch.Tensor:
+    """[sq, kv_len] bool: the keys each query sees."""
+    qpos = q_offset + torch.arange(sq, device=dev)[:, None]
+    kpos = torch.arange(kv_len, device=dev)[None, :]
+    vis = kpos <= qpos if causal else torch.ones(sq, kv_len, dtype=torch.bool, device=dev)
     if window is not None:
         vis &= (qpos - kpos) < window
-    return int(vis.sum())
+    return vis
 
 
-def phase_attention(dev, name, b, sq, smax, h, kh, d, q_offset, kv_len, window) -> dict:
+def phase_attention(dev, name, b, sq, smax, h, kh, d, q_offset, kv_len, window,
+                    causal=True) -> dict:
     bf = torch.bfloat16
     q = torch.randn(b, sq, h, d, device=dev).to(bf)
     k = torch.randn(b, smax, kh, d, device=dev).to(bf)
     v = torch.randn(b, smax, kh, d, device=dev).to(bf)
-    kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len, window=window)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window)
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     want = ref.flash_attention_ref(q, k, v, **kw)
@@ -221,26 +250,88 @@ def phase_attention(dev, name, b, sq, smax, h, kh, d, q_offset, kv_len, window) 
 
     # the library yardstick: one SDPA call over the same keys
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :kv_len], v[:, :kv_len]))
-    qpos = q_offset + torch.arange(sq, device=dev)[:, None]
-    kpos = torch.arange(kv_len, device=dev)[None, :]
-    mask = kpos <= qpos
-    if window is not None:
-        mask &= (qpos - kpos) < window
+    mask = _visible(sq, q_offset, kv_len, window, causal, dev)
     lib = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                            enable_gqa=True))
 
-    pairs = _visible_pairs(sq, q_offset, kv_len, window)
+    pairs = int(mask.sum())
     lo = 0 if window is None else max(0, q_offset - window + 1)
     kv_rows = kv_len - lo
     nbytes = 2 * (2 * b * sq * h * d + 2 * b * kv_rows * kh * d)   # q, o; k, v once
     b_ms, b_by = bound(nbytes, 4.0 * d * pairs * b * h, BF16_FLOPS)
     return {"shape": (f"{name}: q[{b},{sq},{h},{d}] kv[{b},{smax},{kh},{d}] bf16, "
-                      f"q_offset {q_offset}, kv_len {kv_len}, window {window}"),
+                      f"q_offset {q_offset}, kv_len {kv_len}, window {window}, causal {causal}"),
             "max_abs_err": err,
             "ms": device_ms(lambda: ops.flash_attention(q, k, v, **kw)),
             "plain_ms": device_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), iters=10),
             "library_ms": lib, "library": "torch.nn.functional.scaled_dot_product_attention",
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _ssd_inputs(dev, b, s, h, p, n, dtype, seed):
+    """x, B, C as the Mamba block hands them to the scan: strided slices of
+    one conv output [b, s, h*p + 2n], in the compute dtype."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    conv = torch.randn(b, s, h * p + 2 * n, device=dev, generator=gen).to(dtype)
+    x = conv[..., :h * p].reshape(b, s, h, p)
+    bm, cm = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+    dt = torch.rand(b, s, h, device=dev, generator=gen) * 0.19 + 0.01
+    a = -(torch.rand(h, device=dev, generator=gen) * 1.5 + 0.5)
+    return x, dt, a, bm, cm
+
+
+def _ssd_work(b, s, h, p, n, q, in_bytes) -> tuple[float, float]:
+    """(bytes, flops) the SSD scan needs: x, B, C, dt, a read once, y and the
+    final state written once; per (batch, head) and chunk of qv valid rows
+    the lower triangle of C·Bᵀ and of G·xbar (qv(qv+1)/2 pairs, N and P
+    deep) and the two N x P products with the state."""
+    nbytes = in_bytes * (b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h) \
+        + 4 * (b * s * h * p + b * h * n * p)
+    flops = 0.0
+    for t0 in range(0, s, q):
+        qv = min(q, s - t0)
+        flops += 2.0 * (qv * (qv + 1) / 2 * (n + p) + 2 * qv * n * p)
+    return nbytes, flops * b * h
+
+
+def phase_ssd(dev, name, b, s, h, p, n, chunk, dtype, seed) -> dict:
+    inputs = _ssd_inputs(dev, b, s, h, p, n, dtype, seed)
+    y, state = ops.ssd_scan(*inputs, chunk=chunk)
+    torch.cuda.synchronize()
+    want_y, want_state = ref.ssd_chunked_ref(*inputs, chunk=chunk)
+    err, excess = 0.0, 0.0
+    for got, want, what in ((y, want_y, "y"), (state, want_state, "final state")):
+        check(bool(torch.isfinite(got).all()), f"ssd_scan {name}: non-finite {what}")
+        diff = (got - want).abs()
+        err = max(err, float(diff.max()))
+        excess = max(excess, float((diff / (1 + want.abs())).max()))
+    check(excess <= SSD_TOL, f"ssd_scan {name} disagrees with ssd_chunked_ref: "
+                             f"max |err| / (1 + |want|) {excess} (tol {SSD_TOL})")
+    # the control: the plain version's y and state stored in bf16, as a kernel
+    # that kept either in bf16 would give; the limit must tell it apart
+    control = max(float(((w.bfloat16().float() - w).abs() / (1 + w.abs())).max())
+                  for w in (want_y, want_state))
+    nbytes, flops = _ssd_work(b, s, h, p, n, min(chunk, s), dtype.itemsize)
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    tname = "bf16" if dtype == torch.bfloat16 else "f32"
+    return {"shape": (f"{name}: x[{b},{s},{h},{p}] B/C[{b},{s},{n}] {tname} strided views, "
+                      f"chunk {min(chunk, s)}"),
+            "max_abs_err": err, "max_scaled_err": excess, "bf16_control_scaled_err": control,
+            "ms": device_ms(lambda: ops.ssd_scan(*inputs, chunk=chunk)),
+            "plain_ms": device_ms(lambda: ref.ssd_chunked_ref(*inputs, chunk=chunk), iters=5),
+            "library_ms": None, "library": None, "bound_ms": b_ms, "bound_by": b_by,
+            "flops": flops, "bytes": nbytes}
+
+
+def phase_ssd_sequential(dev, seed) -> float:
+    """The kernel against the sequential recurrence (the ground truth) at a
+    small shape; returns the largest scaled error."""
+    inputs = _ssd_inputs(dev, 2, 70, 3, 32, 16, torch.float32, seed)
+    excess = 0.0
+    for got, want in zip(ops.ssd_scan(*inputs, chunk=32), ref.ssd_ref(*inputs)):
+        excess = max(excess, float(((got - want).abs() / (1 + want.abs())).max()))
+    check(excess <= SSD_TOL, f"ssd_scan vs ssd_ref: {excess} (tol {SSD_TOL})")
+    return excess
 
 
 def _bit_equal(got, want, what: str) -> float:
@@ -328,11 +419,90 @@ def phase_full_width_logits(dev, seed: int) -> dict:
     return {"max_rel_err": rel, "top1_agrees": bool((got.argmax(-1) == want.argmax(-1)).all())}
 
 
-def phase_serve(dev, seed: int, n_requests: int = 8, profile_dir: str | None = None) -> dict:
-    cfg = qwen2_1_5b.CONFIG
+def _hybrid_logits(api, params, toks, prompt: int, n_decode: int, cache, vocab: int):
+    """Last-token logits (f32, on the CPU) of a prefill of ``toks[:, :prompt]``
+    and of each of the ``n_decode`` decode steps after it."""
+    out = []
+    with torch.inference_mode():
+        logits, cache = api.prefill(params, {"tokens": toks[:, :prompt]}, cache)
+        out.append(logits)
+        for step in range(n_decode):
+            logits, cache = api.decode(params, toks[:, prompt + step], prompt + step, cache)
+            out.append(logits)
+    return [o.float().cpu()[:, :vocab] for o in out]
+
+
+def _rel_by_step(got, want) -> list[float]:
+    return [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+
+
+def phase_hybrid_logits(dev, seed: int, n_decode: int = 4) -> dict:
+    """zamba2-2.7b at full width cut to one group (6 Mamba2 layers and the
+    shared block), batch 1: a 160-token prefill (two SSD chunks, the second
+    ragged) and ``n_decode`` decode steps on the same weights, card (kernels)
+    against CPU (plain versions): bf16 on the card against f32 on the CPU,
+    and each precision against itself (bf16 with bf16 caches, f32 with f32
+    caches)."""
+    cfg = dataclasses.replace(zamba2_2_7b.CONFIG, n_layers=zamba2_2_7b.CONFIG.attn_every)
+    params = ssm.init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(1, cfg.vocab_size,
+                                                                 (1, 160 + n_decode)))
+    runs = {}
+    for where, device in (("cpu", "cpu"), ("card", dev)):
+        for dtype in (torch.float32, torch.bfloat16):
+            api = mapi.get_api(cfg, compute_dtype=dtype, device=device)
+            runs[where, dtype] = _hybrid_logits(
+                api, cast_for_compute(params, dtype, device), toks.to(device), 160, n_decode,
+                api.init_cache(1, 192, dtype), cfg.vocab_size)
+    for dtype in (torch.float32, torch.bfloat16):
+        for step, g in enumerate(runs["card", dtype]):
+            check(bool(torch.isfinite(g).all()), f"hybrid logits {dtype} step {step}: non-finite")
+    want = runs["cpu", torch.float32]
+    rels = _rel_by_step(runs["card", torch.bfloat16], want)
+    bf16_rels = _rel_by_step(runs["card", torch.bfloat16], runs["cpu", torch.bfloat16])
+    f32_rels = _rel_by_step(runs["card", torch.float32], want)
+    check(max(rels) <= LOGITS_REL_TOL,
+          f"hybrid logits: card bf16 vs CPU f32 max rel err {rels} (tol {LOGITS_REL_TOL})")
+    check(max(bf16_rels) <= HYBRID_BF16_TOL,
+          f"hybrid logits: card bf16 vs CPU bf16 max rel err {bf16_rels} "
+          f"(tol {HYBRID_BF16_TOL})")
+    check(max(f32_rels) <= HYBRID_F32_TOL,
+          f"hybrid logits: card f32 vs CPU f32 max rel err {f32_rels} (tol {HYBRID_F32_TOL})")
+    top1 = [bool((g.argmax(-1) == w.argmax(-1)).all())
+            for g, w in zip(runs["card", torch.bfloat16], want)]
+    return {"layers": cfg.n_layers, "prompt": 160, "decode_steps": n_decode,
+            "max_rel_err_by_step": rels, "max_rel_err": max(rels), "top1_agrees_by_step": top1,
+            "bf16_vs_cpu_bf16_by_step": bf16_rels, "f32_vs_cpu_f32_by_step": f32_rels,
+            # the model's own bf16 error: the plain versions alone, no kernel
+            "cpu_bf16_vs_f32_by_step": _rel_by_step(runs["cpu", torch.bfloat16], want)}
+
+
+def _expected_launches(cfg, prefills: int, decodes: int) -> dict[str, int]:
+    """Kernel launches of ``prefills`` prefills (prompts over one token) and
+    ``decodes`` decode steps; serving runs no quantization kernel."""
+    want = {name: 0 for name in ops.KERNELS}
+    forwards = prefills + decodes
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.attn_every
+        # per Mamba layer ln + gate_norm, per group the shared block's ln1 + ln2, one final
+        want.update(rmsnorm=(2 * cfg.n_layers + 2 * groups + 1) * forwards,
+                    gqa_attention=groups * forwards, ssd_scan=cfg.n_layers * prefills)
+    else:
+        want.update(rmsnorm=(2 * cfg.n_layers + 1) * forwards,
+                    gqa_attention=cfg.n_layers * forwards)
+    return want
+
+
+def phase_serve(dev, seed: int, cfg=qwen2_1_5b.CONFIG, n_requests: int = 8,
+                profile_dir: str | None = None) -> dict:
+    """``Engine`` over the whole model at full width in bf16, random weights
+    from ``seed``: 8 requests of 16-256 prompt tokens, 32 new tokens each,
+    4 slots, max_seq 512."""
+    model = ssm if cfg.family == "hybrid" else transformer
+    torch.cuda.reset_peak_memory_stats(dev)   # the set-up peak is this phase's own
     t0 = time.perf_counter()
-    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                                     device=dev, dtype=torch.float32)
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                               device=dev, dtype=torch.float32)
     eng = Engine(cfg, params, batch_slots=4, max_seq=512, compute_dtype=torch.bfloat16,
                  device=dev)
     del params
@@ -379,17 +549,21 @@ def phase_serve(dev, seed: int, n_requests: int = 8, profile_dir: str | None = N
         check(r.finish_reason in ("eos", "budget", "seq_limit") and r.output
               and all(0 <= t < cfg.vocab_size for t in r.output),
               f"request {r.rid}: finish_reason {r.finish_reason}, output {r.output[:4]}")
-    forwards = len(eng.round_log) + sum(r.decode_steps for r in eng.round_log)
-    check(forwards == len(times["prefill"]) + len(times["decode"]), "forward count")
-    want = {name: 0 for name in ops.KERNELS}   # serving runs no quantization kernel
-    want.update(rmsnorm=(2 * cfg.n_layers + 1) * forwards, gqa_attention=cfg.n_layers * forwards)
-    check(counts == want, f"kernel launches {counts}, expected {want} for {forwards} forwards")
+    prefills = len(eng.round_log)
+    decodes = sum(r.decode_steps for r in eng.round_log)
+    forwards = prefills + decodes
+    check(prefills == len(times["prefill"]) and decodes == len(times["decode"]),
+          "forward count")
+    want = _expected_launches(cfg, prefills, decodes)
+    check(counts == want, f"kernel launches {counts}, expected {want} for {prefills} "
+                          f"prefills and {decodes} decode steps")
 
     tokens = sum(len(r.output) for r in reqs)
     result = {
         "requests": n_requests, "rounds": [dataclasses.asdict(r) for r in eng.round_log],
         "prompt_lens": [len(r.prompt) for r in reqs], "generated_tokens": tokens,
-        "forwards": forwards, "launches": counts,
+        "model": cfg.name, "layers": cfg.n_layers, "forwards": forwards,
+        "prefills": prefills, "decode_steps": decodes, "launches": counts,
         "prefill_ms": [t * 1e3 for t in times["prefill"]],
         # one decode step emits the next token of every sequence in the batch
         "decode_ms_per_token": float(np.mean(times["decode"]) * 1e3),
@@ -400,14 +574,14 @@ def phase_serve(dev, seed: int, n_requests: int = 8, profile_dir: str | None = N
     }
     if profile_dir:
         eng.api = api
-        result["profile"] = profile_round(eng, profile_dir)
+        result["profile"] = profile_round(eng, profile_dir, cfg.name)
     return result
 
 
-def profile_round(eng, out_dir: str) -> dict:
+def profile_round(eng, out_dir: str, name: str) -> dict:
     """torch.profiler over one more round of 4 requests: device time by
-    kernel (table and trace written to ``out_dir``) and the device's busy
-    share of the round's wall time."""
+    kernel (table written to ``out_dir``), by kernel family, and the
+    device's busy share of the round's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     for n in (64, 128, 192, 256):
@@ -415,24 +589,16 @@ def profile_round(eng, out_dir: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.run()
         torch.cuda.synchronize()
-    out = Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    (out / "serve_profile.txt").write_text(table)
-    trace = out / "serve_trace.json"
-    prof.export_chrome_trace(str(trace))
-    events = [e for e in json.loads(trace.read_text())["traceEvents"] if e.get("ph") == "X"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
     forwards = 1 + eng.round_log[-1].decode_steps
-    return {"forwards": forwards, "kernels_per_forward": len(kernels) / forwards,
-            "device_busy_share": sum(e["dur"] for e in kernels) / span,
-            "wall_ms": span / 1e3}
+    summary = _trace_summary(prof, Path(out_dir) / f"serve_{name}_profile.txt")
+    return {"forwards": forwards, "kernels_per_forward": summary["kernels"] / forwards,
+            **summary}
 
 
-# kernel families for the training step's device-time breakdown, by name
+# kernel families for the device-time breakdowns, by name
 KERNEL_FAMILIES = (("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
                    ("ef_quantize", ("quant_",)), ("rmsnorm", ("rmsnorm",)),
+                   ("ssd_scan", ("ssd_scan",)),
                    ("attention", ("gqa", "attention")), ("elementwise", ("elementwise",)),
                    ("reduce", ("reduce",)), ("index", ("index", "embedding", "gather", "scatter")),
                    ("copy", ("copy", "cat", "memcpy", "memset")))
@@ -443,22 +609,14 @@ def _family(name: str) -> str:
     return next((fam for fam, keys in KERNEL_FAMILIES if any(k in low for k in keys)), "other")
 
 
-def profile_train_step(cfg, tc: TrainConfig, mesh, state, batch, dev, out_dir: str) -> dict:
-    """torch.profiler over one more train step: device time by kernel family
-    and the device's busy share of the step's wall time (table written to
-    ``out_dir``; the trace is parsed in a temporary directory)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    step = TS.make_train_step(cfg, tc, mesh, device=dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(state, batch)
-        torch.cuda.synchronize()
-    out = Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "train_profile.txt").write_text(
-        prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+def _trace_summary(prof, table_path: Path) -> dict:
+    """Write the profiler's table to ``table_path``; from its trace (parsed
+    in a temporary directory, it is tens of MB) the kernel count, the
+    device's busy share of the traced span, and device time by family."""
+    table_path.parent.mkdir(parents=True, exist_ok=True)
+    table_path.write_text(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
     with tempfile.TemporaryDirectory() as tmp:
-        trace = Path(tmp) / "train_trace.json"
+        trace = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(trace))
         events = [e for e in json.loads(trace.read_text())["traceEvents"] if e.get("ph") == "X"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
@@ -471,6 +629,19 @@ def profile_train_step(cfg, tc: TrainConfig, mesh, state, batch, dev, out_dir: s
     return {"kernels": len(kernels), "device_busy_share": busy / span, "wall_ms": span / 1e3,
             "device_ms": busy / 1e3,
             "device_ms_by_family": dict(sorted(families.items(), key=lambda kv: -kv[1]))}
+
+
+def profile_train_step(cfg, tc: TrainConfig, mesh, state, batch, dev, out_dir: str) -> dict:
+    """torch.profiler over one more train step: device time by kernel family
+    and the device's busy share of the step's wall time (table written to
+    ``out_dir``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = TS.make_train_step(cfg, tc, mesh, device=dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    return _trace_summary(prof, Path(out_dir) / "train_profile.txt")
 
 
 def step_parts_ms(cfg, tc: TrainConfig, mesh, plans, state, batch, dev) -> dict:
@@ -728,33 +899,69 @@ def main() -> int:
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build_logs = _build.build(force=True, ptxas_info=True)
     build_s = time.perf_counter() - t0
     log(f"[build] {', '.join(build_logs)} in {build_s:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Function properties for" in line or "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
     cfg = qwen2_1_5b.CONFIG
     hd, H, K = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    zcfg = zamba2_2_7b.CONFIG
+    zhd, zH, zK, zwin = zcfg.resolved_head_dim, zcfg.n_heads, zcfg.n_kv_heads, zcfg.sliding_window
+    _, d_inner, nheads, _ = ssm._dims(zcfg)
+    zs = zcfg.ssm
+    smoke = zamba2_2_7b.SMOKE
+    _, _, s_heads, _ = ssm._dims(smoke)
     phases = {
         "rmsnorm": [phase_rmsnorm(dev, 4 * 256, cfg.d_model),     # prefill rows B*S
-                    phase_rmsnorm(dev, 4, cfg.d_model)],          # decode rows
+                    phase_rmsnorm(dev, 4, cfg.d_model),           # decode rows
+                    # zamba2: ln, ln1, ln2 and the final norm at d_model, the gate norm
+                    # at d_inner; prefill and decode rows
+                    phase_rmsnorm(dev, 4 * 256, zcfg.d_model),
+                    phase_rmsnorm(dev, 4, zcfg.d_model),
+                    phase_rmsnorm(dev, 4 * 256, d_inner),
+                    phase_rmsnorm(dev, 4, d_inner)],
         "gqa_attention": [
             phase_attention(dev, "prefill", 4, 256, 512, H, K, hd, 0, 256, None),
             phase_attention(dev, "decode", 4, 1, 512, H, K, hd, 511, 512, None),
             phase_attention(dev, "decode-short", 4, 1, 512, H, K, hd, 287, 288, None),
             phase_attention(dev, "window", 4, 256, 512, H, K, hd, 0, 256, 64),
+            # zamba2's shared block: head_dim 80; decode reads its ring cache
+            phase_attention(dev, "zamba2 prefill", 4, 256, 256, zH, zK, zhd, 0, 256, zwin),
+            phase_attention(dev, "zamba2 decode", 4, 1, 512, zH, zK, zhd, 0, 512, None,
+                            causal=False),
+        ],
+        "ssd_scan": [
+            # the serving prefill as the model hands it over (bf16 views): the main row
+            phase_ssd(dev, "prefill", 4, 256, nheads, zs.head_dim, zs.state_dim, zs.chunk,
+                      torch.bfloat16, args.seed),
+            phase_ssd(dev, "prefill f32", 4, 256, nheads, zs.head_dim, zs.state_dim, zs.chunk,
+                      torch.float32, args.seed + 1),
+            phase_ssd(dev, "ragged", 4, 200, nheads, zs.head_dim, zs.state_dim, zs.chunk,
+                      torch.bfloat16, args.seed + 2),
+            phase_ssd(dev, "smoke", 2, 64, s_heads, smoke.ssm.head_dim, smoke.ssm.state_dim,
+                      smoke.ssm.chunk, torch.float32, args.seed + 3),
         ],
     }
+    control = phases["ssd_scan"][0]["bf16_control_scaled_err"]
+    check(control > SSD_TOL, f"ssd_scan: the bf16-rounded control reads {control}, "
+                             f"within the limit {SSD_TOL}")
+    log(f"[kernel] ssd_scan control, the plain version's outputs rounded to bf16: max |err| / "
+        f"(1 + |want|) {control:.3g}, over the limit {SSD_TOL} as it must be")
+    ssd_seq = phase_ssd_sequential(dev, args.seed)
+    log(f"[kernel] ssd_scan vs the sequential ssd_ref: max |err| / (1 + |want|) "
+        f"{ssd_seq:.3g} (tol {SSD_TOL})")
     # the [train] phase's bucket sizes first, the largest (the main row) leading
     quant_sizes = {**train_buckets(cfg, train_config(args.seed)), **QUANT_EXTRA_SIZES}
     for label, n in quant_sizes.items():
         for bits in (8, 4):
             for name, row in phase_quant(dev, label, n, bits).items():
                 phases.setdefault(name, []).append(row)
+    log(f"[time] {time.perf_counter() - t_start:.1f} s")
     for name, rows in phases.items():
         for p in rows:
             lib = "none" if p["library_ms"] is None else f"{p['library_ms'] * 1e3:.2f} us"
@@ -769,6 +976,27 @@ def main() -> int:
 
     serve = phase_serve(dev, args.seed, profile_dir=args.profile)
     log(f"[serve] {json.dumps(serve)}")
+    log(f"[time] {time.perf_counter() - t_start:.1f} s")
+
+    hlogits = phase_hybrid_logits(dev, args.seed)
+    by_step = lambda key: [float(f"{r:.4g}") for r in hlogits[key]]  # noqa: E731
+    log(f"[logits-hybrid] zamba2-2.7b full width, {hlogits['layers']} layers, prefill of "
+        f"{hlogits['prompt']} tokens and {hlogits['decode_steps']} decode steps, max rel err "
+        f"by step: card bf16 vs CPU f32 {by_step('max_rel_err_by_step')} (tol "
+        f"{LOGITS_REL_TOL}), top-1 agrees {hlogits['top1_agrees_by_step']}; card bf16 vs CPU "
+        f"bf16 {by_step('bf16_vs_cpu_bf16_by_step')} (tol {HYBRID_BF16_TOL}); card f32 vs "
+        f"CPU f32 {by_step('f32_vs_cpu_f32_by_step')} (tol {HYBRID_F32_TOL}); the plain "
+        f"versions on the CPU alone, bf16 vs f32 {by_step('cpu_bf16_vs_f32_by_step')}")
+    log(f"[time] {time.perf_counter() - t_start:.1f} s")
+
+    hserve = phase_serve(dev, args.seed, cfg=zamba2_2_7b.CONFIG, profile_dir=args.profile)
+    log(f"[serve-hybrid] zamba2-2.7b full width and depth, bf16: decode "
+        f"{hserve['decode_ms_per_token']:.2f} ms per step, prefill "
+        f"{[round(t, 2) for t in hserve['prefill_ms']]} ms per round, "
+        f"{hserve['tokens_per_s']:.1f} tokens/s, peak {hserve['peak_memory_gib']:.2f} GiB "
+        f"(set-up {hserve['init_peak_memory_gib']:.2f} GiB); {json.dumps(hserve)}")
+    torch.cuda.empty_cache()   # the engine is gone: free its weights before training
+    log(f"[time] {time.perf_counter() - t_start:.1f} s")
 
     check_ = phase_train_check(dev, args.seed)
     same = check_["sync_adamw_same_inputs"]
@@ -792,7 +1020,12 @@ def main() -> int:
         f"{json.dumps(train['buckets'])}")
     log(f"[train] {json.dumps(train)}")
 
-    by_path = {"serve": serve["launches"], "train": train["launches"]}
+    log(f"[time] {time.perf_counter() - t_start:.1f} s")
+    by_path = {"serve": serve["launches"], "serve-hybrid": hserve["launches"],
+               "train": train["launches"]}
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
     record = {"kernels": []}
     for name, rows in phases.items():
         main_row = rows[0]
@@ -806,7 +1039,9 @@ def main() -> int:
                                         "library_ms")},
             "phases": rows,
         })
+    record["ssd_scan_vs_sequential"] = ssd_seq
     record["build_s"] = build_s
+    record["wall_s"] = time.perf_counter() - t_start
     record["card"] = card
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

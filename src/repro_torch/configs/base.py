@@ -1,7 +1,8 @@
 """Model config of the port: its own copy of ``repro.configs.base``.
 
-What the dense decoder's serving and training paths read is kept: the
-``ModelConfig`` fields, ``resolved_head_dim``, ``padded_vocab``,
+What the ported serving and training paths read is kept: the
+``ModelConfig`` fields of the dense decoder and of the hybrid (``SSMConfig``,
+``attn_every``, ``subquadratic``), ``resolved_head_dim``, ``padded_vocab``,
 ``smoke_variant`` and ``TrainConfig``.  The fields and defaults are those of
 the reference, so a config built here equals the reference's field for
 field (the CPU tests check it).
@@ -11,6 +12,17 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Literal
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2-style selective state space block."""
+
+    state_dim: int = 64
+    head_dim: int = 64              # per-SSM-head channel width
+    expand: int = 2                 # d_inner = expand * d_model
+    conv_width: int = 4
+    chunk: int = 128                # chunked-scan block length
 
 
 @dataclass(frozen=True)
@@ -31,7 +43,12 @@ class ModelConfig:
     norm_eps: float = 1e-6
     rope_theta: float = 1e4
     tie_embeddings: bool = False
-    sliding_window: int | None = None
+    ssm: SSMConfig | None = None
+    # hybrid (zamba2): attn block shared across periodic insertions
+    attn_every: int = 0              # 0 = no interleaved shared attention
+    # long-context capability (sub-quadratic families only)
+    subquadratic: bool = False
+    sliding_window: int | None = None  # used by hybrid attn at long context
     # fields of the reference that select parts the port does not have yet;
     # kept so that the model can refuse them
     frontend: Literal[None, "patch_embed", "audio_frames"] = None
@@ -46,7 +63,6 @@ class ModelConfig:
         """Embedding-table rows, rounded up to 256 as in the reference (the
         pad logits are masked to -1e9 in ``unembed_apply``)."""
         return -(-self.vocab_size // 256) * 256
-
 
 
 @dataclass(frozen=True)
@@ -96,14 +112,17 @@ class TrainConfig:
 def smoke_variant(cfg: ModelConfig, **over) -> ModelConfig:
     """Reduced same-family config: tiny dims, same structural features."""
     kw = dict(
-        n_layers=min(cfg.n_layers, 2),
+        n_layers=min(cfg.n_layers, 2 if cfg.attn_every == 0 else 4),
         d_model=128,
         n_heads=4,
         n_kv_heads=max(1, min(4, cfg.n_kv_heads * 4 // max(cfg.n_heads, 1)) or 1),
         d_ff=256 if cfg.d_ff else 0,
         vocab_size=512,
         head_dim=64 if cfg.head_dim else None,
+        attn_every=min(cfg.attn_every, 2) if cfg.attn_every else 0,
         first_k_dense=min(cfg.first_k_dense, 1),
     )
+    if cfg.ssm:
+        kw["ssm"] = replace(cfg.ssm, state_dim=16, head_dim=32, chunk=16)
     kw.update(over)
     return replace(cfg, name=cfg.name + "-smoke", **kw)

@@ -6,11 +6,12 @@ architectures raise with the list of what the port has.
 
 from __future__ import annotations
 
-from . import qwen2_1_5b
+from . import qwen2_1_5b, zamba2_2_7b
 from .base import ModelConfig
 
 _MODULES = {
     "qwen2-1.5b": qwen2_1_5b,
+    "zamba2-2.7b": zamba2_2_7b,
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -30,6 +30,11 @@
 //     hides entirely are skipped, so the work is that of the unmasked pairs.
 //   * Shared memory rows are padded (D + 4 floats, 64 + 8 for scores) so the
 //     16-byte reads of the register tiles hit distinct banks.
+//   * Head dims 32, 64, 128 (qwen2) and 80 (zamba2's shared block, 2560 / 32).
+//     A thread owns D / 32 four-column groups of the output; at D = 80 the 20
+//     groups do not split evenly over the 8 column threads, so each owns up
+//     to 3 and the ones past D are skipped (a compile-time no-op at the other
+//     head dims).  The head dimension is not padded in device memory.
 //
 // C interface (loaded with ctypes): returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for a type/head_dim the file does not
@@ -77,18 +82,19 @@ constexpr size_t smem_bytes() {
 
 // Thread t owns rows rg + 16*ii (ii < BR/16) with rg = t / 8, the score
 // columns cg + 8*jj (jj < 8) and the output columns 4*(cg + 8*kk) .. +3
-// (kk < D/32) with cg = t % 8.
+// (kk < ceil(D/32), those below D) with cg = t % 8.
 template <typename TQ, typename TKV, int BR, int D>
 __global__ void __launch_bounds__(kThreads)
 gqa_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                      const TKV* __restrict__ v, TQ* __restrict__ o,
                      int sq, int h, int kh, int skv, int kv_len, int q_offset,
                      int window, int causal, float sm_scale) {
-  static_assert(BR % 16 == 0 && D % 32 == 0, "tile shape");
+  static_assert(BR % 16 == 0 && D % 16 == 0, "tile shape");
   constexpr int DP = D + 4;
   constexpr int TR = BR / 16;
-  constexpr int TC = D / 32;
   constexpr int D4 = D / 4;
+  constexpr int TC = (D4 + 7) / 8;
+  constexpr bool kEven = D4 % 8 == 0;   // every thread owns TC column groups
 
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -237,6 +243,7 @@ gqa_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       for (int ii = 0; ii < TR; ++ii) pv[ii] = Ss[(rg + 16 * ii) * SP + n];
 #pragma unroll
       for (int kk = 0; kk < TC; ++kk) {
+        if (!kEven && cg + 8 * kk >= D4) continue;
         const float4 vv4 = load4(Vs + n * DP + 4 * (cg + 8 * kk));
 #pragma unroll
         for (int ii = 0; ii < TR; ++ii) {
@@ -260,6 +267,7 @@ gqa_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     TQ* dst = o + (((size_t)b * sq + i) * h + (size_t)kvh * g + j) * D;
 #pragma unroll
     for (int kk = 0; kk < TC; ++kk) {
+      if (!kEven && cg + 8 * kk >= D4) continue;
       const float4 a = acc[ii][kk];
       store4(dst + 4 * (cg + 8 * kk), make_float4(a.x / l, a.y / l, a.z / l, a.w / l));
     }
@@ -305,6 +313,9 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, void* o, int b
                                    causal, sm_scale, stream);
     case 64:
       return launch_d<TQ, TKV, 64>(q, k, v, o, b, sq, h, kh, skv, kv_len, q_offset, window,
+                                   causal, sm_scale, stream);
+    case 80:
+      return launch_d<TQ, TKV, 80>(q, k, v, o, b, sq, h, kh, skv, kv_len, q_offset, window,
                                    causal, sm_scale, stream);
     case 128:
       return launch_d<TQ, TKV, 128>(q, k, v, o, b, sq, h, kh, skv, kv_len, q_offset, window,

@@ -23,7 +23,7 @@ import torch
 from . import _build
 from .ref import flash_attention_ref, plain_vjp
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 # (q dtype, kv dtype) pairs the kernel is instantiated for; the KV cache may
 # be bf16 under an f32 model, as in the reference's serving engine
 _DTYPE_PAIRS = {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),

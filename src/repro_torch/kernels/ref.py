@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the kernels (the allclose targets).
 
 Counterparts of ``repro/kernels/ref.py``: ``rmsnorm_ref``,
-``flash_attention_ref`` and the three quantization oracles
+``flash_attention_ref``, the three quantization oracles
 ``quantize_blocks_ref``, ``ef_quantize_bucketize_ref`` and
-``dequant_add_ref``.  The attention version is extended to what the
+``dequant_add_ref``, and the two SSD scans: ``ssd_ref`` (the sequential
+recurrence, the ground truth) and ``ssd_chunked_ref`` (the chunked dual
+form of ``repro/models/ssm.py:ssd_chunked``, the kernel's plain version).  The attention version is extended to what the
 model needs and the Pallas kernel lacks: GQA (``H = K·g``, K/V read per
 KV head), ``q_offset`` (query ``i`` sits at position ``q_offset + i``),
 ``window`` and a valid KV length ``kv_len``.  The wrappers take these on
@@ -23,8 +25,10 @@ import torch
 def plain_vjp(fn, inputs, needs_grad, grad_out):
     """Gradients of ``fn(*inputs)`` against ``grad_out`` for the inputs whose
     ``needs_grad`` is set (None for the others), by autograd through ``fn``
-    recomputed on detached copies of the inputs.  The reference has no
-    backward kernel either: JAX differentiates the jnp twins of its kernels."""
+    recomputed on detached copies of the inputs.  ``fn`` may return a tuple
+    of tensors, ``grad_out`` then holds one gradient for each.  The
+    reference has no backward kernel either: JAX differentiates the jnp
+    twins of its kernels."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs, needs_grad)]
         wanted = [t for t in leaves if t.requires_grad]
@@ -129,3 +133,72 @@ def dequant_add_ref(q: torch.Tensor, scales: torch.Tensor, acc: torch.Tensor, *,
     (the product rounded to f32 before the sum)."""
     deq = (q.reshape(-1, block).float() * scales[:, None]).reshape(-1)
     return (acc.float() + deq).to(acc.dtype)
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bm: torch.Tensor,
+            cm: torch.Tensor):
+    """The sequential SSD recurrence (``repro/kernels/ref.py:ssd_ref``, in the
+    model's layout instead of the folded one): per step
+    ``h = exp(dt·a)·h + B ⊗ (x·dt)`` and ``y = C·h``.
+
+    x [B,S,H,P]; dt [B,S,H]; a [H]; bm/cm [B,S,N] (shared by the heads).
+    Returns (y [B,S,H,P], final state [B,H,N,P]), both f32.
+    """
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    xf, dtf, af, bf, cf = (t.float() for t in (x, dt, a, bm, cm))
+    state = xf.new_zeros(b, h, n, p)
+    ys = []
+    for t in range(s):
+        dec = torch.exp(dtf[:, t] * af)                                   # [B,H]
+        upd = bf[:, t, None, :, None] * (xf[:, t] * dtf[:, t, :, None])[:, :, None, :]
+        state = dec[..., None, None] * state + upd
+        ys.append(torch.einsum("bn,bhnp->bhp", cf[:, t], state))
+    return torch.stack(ys, dim=1), state
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bm: torch.Tensor,
+                    cm: torch.Tensor, chunk: int = 128):
+    """Mamba2 SSD over a sequence in chunks of ``min(chunk, S)``: quadratic
+    attention-like weights inside a chunk, the state carried across chunks
+    (``repro/models/ssm.py:ssd_chunked``, the same operations in the same
+    order).  A ragged last chunk is zero-padded: dt = 0 there decays
+    nothing and adds no state.
+
+    x [B,S,H,P]; dt [B,S,H]; a [H] (negative); bm/cm [B,S,N].  Inputs of
+    any float type are read in f32.  Returns (y [B,S,H,P], final state
+    [B,H,N,P]), both f32.
+    """
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    xf, dtf, af, bf, cf = (t.float() for t in (x, dt, a, bm, cm))
+    q = min(chunk, s)
+    pad = (-s) % q
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, 0, 0, pad))
+        dtf = torch.nn.functional.pad(dtf, (0, 0, 0, pad))
+        bf = torch.nn.functional.pad(bf, (0, 0, 0, pad))
+        cf = torch.nn.functional.pad(cf, (0, 0, 0, pad))
+    nc = xf.shape[1] // q
+    causal = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
+    state = xf.new_zeros(b, h, n, p)
+    ys = []
+    for c in range(nc):
+        sl = slice(c * q, (c + 1) * q)
+        xk, dtk, bk, ck = xf[:, sl], dtf[:, sl], bf[:, sl], cf[:, sl]
+        cum = torch.cumsum(dtk * af, dim=1)                               # [B,Q,H]
+        seg_end = cum[:, -1, :]                                           # [B,H]
+        li = cum[:, :, None, :] - cum[:, None, :, :]                      # [B,Q,Q,H]
+        # exp of the masked entries is never taken: it may overflow, and
+        # its gradient through the mask would be 0 * inf
+        lmat = torch.exp(li.masked_fill(~causal[None, :, :, None], -math.inf))
+        cbk = torch.einsum("bin,bjn->bij", ck, bk)                        # [B,Q,Q]
+        w_intra = cbk[..., None] * lmat * dtk[:, None, :, :]
+        y_intra = torch.einsum("bijh,bjhp->bihp", w_intra, xk)
+        decay_to_end = torch.exp(seg_end[:, None, :] - cum)               # [B,Q,H]
+        state_c = torch.einsum("bjn,bjh,bjhp->bhnp", bk, decay_to_end * dtk, xk)
+        y_inter = torch.einsum("bin,bih,bhnp->bihp", ck, torch.exp(cum), state)
+        state = state * torch.exp(seg_end)[..., None, None] + state_c
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1)
+    return (y[:, :s] if pad else y), state

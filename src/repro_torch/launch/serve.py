@@ -4,6 +4,10 @@
         --requests 8 --max-new 16            # on the GPU (the default)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --smoke --device cpu                 # plain PyTorch path on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --max-seq 512                        # the Mamba2 hybrid, on the GPU
+
+``--arch`` takes the architectures the port has (``registry.ARCH_IDS``).
 
 The reference's ``--ckpt-dir`` waits for the checkpointer's port.
 """

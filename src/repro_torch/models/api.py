@@ -1,5 +1,6 @@
 """Unified model API of the port: the counterpart of ``repro/models/api.py``
-for the ``decoder`` family.
+for the ``decoder`` family (``transformer``) and the ``hybrid`` family
+(``ssm``, zamba2); the other families are refused.
 
 ``get_api(cfg)`` returns a ``ModelAPI`` with the reference's five
 functions; ``remat`` ("none" or "full") applies to ``loss``, as in the
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from . import transformer
+from . import ssm, transformer
 
 
 @dataclass(frozen=True)
@@ -31,7 +32,10 @@ class ModelAPI:
 
 def get_api(cfg: ModelConfig, compute_dtype=torch.bfloat16, device="cuda",
             remat: str = "full") -> ModelAPI:
-    transformer.check_supported(cfg)
+    # the hybrid goes to ssm; every other family to transformer, which
+    # refuses all but the dense decoder
+    mod = ssm if cfg.family == "hybrid" else transformer
+    mod.check_supported(cfg)
     dev = resolve_device(device)
     window = cfg.sliding_window
 
@@ -39,22 +43,21 @@ def get_api(cfg: ModelConfig, compute_dtype=torch.bfloat16, device="cuda",
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(seed))
-        return transformer.init_params(cfg, gen, device=dev, dtype=dtype)
+        return mod.init_params(cfg, gen, device=dev, dtype=dtype)
 
     def loss(params, batch):
-        return transformer.loss_fn(params, batch, cfg, compute_dtype=compute_dtype,
-                                   remat=remat)
+        return mod.loss_fn(params, batch, cfg, compute_dtype=compute_dtype, remat=remat)
 
     def prefill(params, batch, cache):
-        return transformer.prefill(params, batch["tokens"], cfg, cache,
-                                   compute_dtype=compute_dtype, window=window)
+        return mod.prefill(params, batch["tokens"], cfg, cache, compute_dtype=compute_dtype,
+                           window=window)
 
     def decode(params, token, pos, cache):
-        return transformer.decode_step(params, token, pos, cfg, cache,
-                                       compute_dtype=compute_dtype, window=window)
+        return mod.decode_step(params, token, pos, cfg, cache, compute_dtype=compute_dtype,
+                               window=window)
 
     def init_cache(b, s, dtype=torch.bfloat16):
-        return transformer.init_cache(cfg, b, s, device=dev, dtype=dtype)
+        return mod.init_cache(cfg, b, s, device=dev, dtype=dtype)
 
     return ModelAPI(init=init, loss=loss, prefill=prefill, decode=decode,
                     init_cache=init_cache)

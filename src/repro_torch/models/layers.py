@@ -19,8 +19,10 @@ Where the reference runs the jnp twins of its Pallas kernels
 (``norm_apply`` → ``kernels/rmsnorm.py``, ``blocked_attention`` and
 ``decode_attention`` → ``kernels/flash_attention.py``), this module calls the
 port's kernel wrappers, which launch the CUDA kernels on the card and run
-their plain versions on the CPU.  MoE, MLA, learned positions and the
-non-swiglu MLPs are not ported yet.
+their plain versions on the CPU.  The hybrid's shared attention block, with
+its ring-buffer decode cache (``repro/models/ssm.py``), is here too:
+``ring_attention_apply``.  MoE, MLA, learned positions and the non-swiglu
+MLPs are not ported yet.
 """
 
 from __future__ import annotations
@@ -136,6 +138,53 @@ def attention_apply(
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
     y = out.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(x.dtype)
     return y, cache
+
+
+def ring_attention_apply(
+    p: dict,
+    x: torch.Tensor,                 # [B, S, d]
+    cfg: ModelConfig,
+    positions: torch.Tensor,         # [B, S]
+    *,
+    window: int | None = None,
+    cache: dict | None = None,       # {"k","v"} [B, clen, K, hd], written in place
+    cache_index: int | None = None,
+) -> torch.Tensor:
+    """Causal GQA attention of the hybrid's shared block, whose decode cache
+    is a ring of ``clen`` slots (``repro/models/ssm.py:247-296``): position
+    ``t`` lives in slot ``t % clen`` with its key stored rotated, so the
+    decode mask is "slot filled" (``kv_len = min(t + 1, clen)``, no causal
+    mask).  Prefill attends over its own keys (causal, ``window``) and seeds
+    the ring with the last ``clen`` keys and values from slot 0, as the
+    reference does; decode (S = 1 with a cache) writes slot ``t % clen``.
+    The reference projects q/k/v without the QKV bias on this block, so the
+    hybrid refuses ``qkv_bias`` (``ssm.check_supported``)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = apply_rope(_proj(x, p["wq"]).reshape(b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
+    k = apply_rope(_proj(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, hd), positions,
+                   cfg.rope_theta)
+    v = _proj(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    if cache is not None and s == 1:
+        kc, vc = cache["k"], cache["v"]
+        clen = kc.shape[1]
+        widx = cache_index % clen
+        kc[:, widx:widx + 1] = k
+        vc[:, widx:widx + 1] = v
+        out = ops.flash_attention(q, kc, vc, causal=False, kv_len=min(cache_index + 1, clen))
+    else:
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        if cache is not None:
+            clen = cache["k"].shape[1]
+            if s >= clen:
+                # the reference's slot alignment holds only when clen | s
+                # (ROADMAP C); the port copies it
+                cache["k"].copy_(k[:, -clen:])
+                cache["v"].copy_(v[:, -clen:])
+            else:
+                cache["k"][:, :s] = k
+                cache["v"][:, :s] = v
+    return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,9 @@ has no such counters.
 The engine casts the parameter matrices and biases to ``compute_dtype``
 once, at construction, where the reference casts its f32 weights at every
 use: the values are bit-identical, and a full-width bf16 decode step does
-not re-read and re-cast the f32 weights.  Norm scales stay f32.
+not re-read and re-cast the f32 weights.  What the reference reads in f32
+stays f32: the norm scales, and a Mamba block's ``ln``, ``gate_norm``,
+``A_log``, ``D`` and ``dt_bias``.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api as mapi
 
-NORM_KEYS = ("ln1", "ln2", "final_norm")
+# params the model reads in f32 (the subtrees under these keys)
+F32_KEYS = ("ln1", "ln2", "final_norm", "ln", "gate_norm", "A_log", "D", "dt_bias")
 
 
 @dataclass
@@ -63,14 +66,15 @@ class RoundStats:
 
 
 def cast_for_compute(params: dict, compute_dtype, device) -> dict:
-    """Matrices and biases to ``compute_dtype`` on ``device``; norm scales
-    to f32 (``norm_apply`` reads them in f32)."""
-    def conv(tree, norm=False):
+    """Matrices, biases and conv weights to ``compute_dtype`` on ``device``;
+    what the model reads in f32 (``F32_KEYS``: norm scales, the Mamba
+    block's decay, skip and step parameters) to f32."""
+    def conv(tree, f32=False):
         if isinstance(tree, dict):
-            return {k: conv(v, norm or k in NORM_KEYS) for k, v in tree.items()}
+            return {k: conv(v, f32 or k in F32_KEYS) for k, v in tree.items()}
         if isinstance(tree, list):
-            return [conv(v, norm) for v in tree]
-        return tree.to(device=device, dtype=torch.float32 if norm else compute_dtype)
+            return [conv(v, f32) for v in tree]
+        return tree.to(device=device, dtype=torch.float32 if f32 else compute_dtype)
 
     return conv(params)
 

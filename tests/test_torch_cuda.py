@@ -195,3 +195,106 @@ def test_model_gradients_on_card_match_cpu(cuda_device):
     for a, b in zip(card, cpu):
         assert a is not None and torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4 * scale)
+
+
+# ----------------------------------------------------------------- ssd scan
+# The kernel against its plain version (ssd_chunked_ref) on the same inputs:
+# the same f32 math in another summation order over up to 128-step chunks
+# and a carried state.  |err| <= SSD_TOL * (1 + |want|) on y and on the final
+# state, as in chip_smoke.py: sound kernels read ~1e-6, outputs stored in
+# bf16 read ~2e-3 (the reference's own kernel tolerance).
+SSD_TOL = 1e-4
+
+SSD_CASES = [
+    (4, 256, 80, 64, 64, 128),    # serving prefill
+    (4, 200, 80, 64, 64, 128),    # ragged last chunk
+    (2, 37, 8, 32, 16, 16),       # smoke dims, ragged
+    (1, 5, 2, 16, 16, 128),       # a prompt shorter than a chunk
+    (3, 130, 4, 64, 32, 64),
+]
+
+
+def _ssd_inputs(device, b, s, h, p, n, dtype, strided):
+    """x, B, C as the Mamba block hands them over: slices of one conv
+    output when ``strided``."""
+    gen = torch.Generator(device=device).manual_seed(b * 1000 + s)
+    conv = torch.randn(b, s, h * p + 2 * n, device=device, generator=gen).to(dtype)
+    if strided:
+        x = conv[..., :h * p].reshape(b, s, h, p)
+        bm, cm = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+    else:
+        x = conv[..., :h * p].reshape(b, s, h, p).contiguous()
+        bm, cm = conv[..., h * p:h * p + n].contiguous(), conv[..., h * p + n:].contiguous()
+    dt = torch.rand(b, s, h, device=device, generator=gen) * 0.19 + 0.01
+    a = -(torch.rand(h, device=device, generator=gen) * 1.5 + 0.5)
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided", [True, False])
+def test_ssd_scan_kernel_matches_plain_on_card(cuda_device, b, s, h, p, n, chunk, dtype,
+                                               strided):
+    inputs = _ssd_inputs(cuda_device, b, s, h, p, n, dtype, strided)
+    before = ops.launch_counts()["ssd_scan"]
+    y, state = ops.ssd_scan(*inputs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    want_y, want_state = ref.ssd_chunked_ref(*inputs, chunk=chunk)
+    assert y.shape == (b, s, h, p) and state.shape == (b, h, n, p)
+    torch.testing.assert_close(y, want_y, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(state, want_state, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_matches_sequential_oracle_on_card(cuda_device):
+    inputs = _ssd_inputs(cuda_device, 2, 70, 3, 32, 16, torch.float32, True)
+    for got, want in zip(ops.ssd_scan(*inputs, chunk=32), ref.ssd_ref(*inputs)):
+        torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_rejects_unsupported_shapes_on_card(cuda_device):
+    x, dt, a, bm, cm = _ssd_inputs(cuda_device, 1, 8, 2, 48, 16, torch.float32, False)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        ops.ssd_scan(x, dt, a, bm, cm)
+    x, dt, a, bm, cm = _ssd_inputs(cuda_device, 1, 300, 2, 16, 16, torch.float32, False)
+    with pytest.raises(ValueError, match="chunk 256"):
+        ops.ssd_scan(x, dt, a, bm, cm, chunk=256)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_gradient_through_kernel_on_card(cuda_device):
+    inputs = [t.detach().requires_grad_() for t in
+              _ssd_inputs(cuda_device, 2, 40, 4, 32, 16, torch.float32, False)]
+    y, state = ops.ssd_scan(*inputs, chunk=16)
+    assert y.grad_fn is not None
+    gy, gs = torch.randn_like(y), torch.randn_like(state)
+    got = torch.autograd.grad((y, state), inputs, (gy, gs))
+    want = torch.autograd.grad(ref.ssd_chunked_ref(*inputs, chunk=16), inputs, (gy, gs))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# zamba2's shared block: head_dim 80, MHA (H = K = 32); decode reads the ring
+# cache with no causal mask and kv_len = the filled slots
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,smax,q_offset,kv_len,causal", [
+    (4, 256, 256, 0, 256, True),     # prefill
+    (4, 1, 512, 511, 512, False),    # decode over a full ring
+    (4, 1, 512, 0, 300, False),      # decode over 300 filled slots
+    (2, 37, 64, 5, 42, True),        # ragged prefill into a cache
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_head_dim_80_matches_plain_on_card(cuda_device, b, sq, smax, q_offset,
+                                                     kv_len, causal, dtype):
+    q = torch.randn(b, sq, 32, 80, device=cuda_device).to(dtype)
+    k = torch.randn(b, smax, 32, 80, device=cuda_device).to(dtype)
+    v = torch.randn(b, smax, 32, 80, device=cuda_device).to(dtype)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v, **kw).float(),
+                               rtol=tol, atol=tol)

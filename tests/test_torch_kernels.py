@@ -187,9 +187,13 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     q, k, v = torch.randn(2, 5, 4, 16), torch.randn(2, 9, 2, 16), torch.randn(2, 9, 2, 16)
     got = ops.flash_attention(q, k, v, q_offset=3, kv_len=8, window=4)
     assert torch.equal(got, ref.flash_attention_ref(q, k, v, q_offset=3, kv_len=8, window=4))
+    x, dt, a, bm = torch.randn(2, 7, 3, 16), torch.rand(2, 7, 3), -torch.rand(3), torch.randn(2, 7, 16)
+    for g, w in zip(ops.ssd_scan(x, dt, a, bm, bm, chunk=4),
+                    ref.ssd_chunked_ref(x, dt, a, bm, bm, chunk=4)):
+        assert torch.equal(g, w)
     assert ops.launch_counts() == {"rmsnorm": 0, "gqa_attention": 0,
                                    "ef_quantize_bucketize": 0, "quantize_blocks": 0,
-                                   "dequant_add": 0}
+                                   "dequant_add": 0, "ssd_scan": 0}
 
 
 @pytest.mark.parametrize("kwargs,shapes,match", [

@@ -19,10 +19,12 @@ import jax.numpy as jnp
 
 from repro.configs import qwen2_1_5b as jqwen
 from repro.configs import registry as jreg
+from repro.configs import zamba2_2_7b as jzamba
 from repro.models import api as japi
 from repro.models import layers as jlayers
 from repro_torch.configs import qwen2_1_5b as tqwen
 from repro_torch.configs import registry as treg
+from repro_torch.configs import zamba2_2_7b as tzamba
 from repro_torch.models import api as tapi
 from repro_torch.models import convert
 from repro_torch.models import layers as tlayers
@@ -55,11 +57,15 @@ def _vocab(logits):
 
 # -------------------------------------------------------------------- config
 
-@pytest.mark.parametrize("pair", [(jqwen.CONFIG, tqwen.CONFIG), (jqwen.SMOKE, tqwen.SMOKE)])
+@pytest.mark.parametrize("pair", [(jqwen.CONFIG, tqwen.CONFIG), (jqwen.SMOKE, tqwen.SMOKE),
+                                  (jzamba.CONFIG, tzamba.CONFIG), (jzamba.SMOKE, tzamba.SMOKE)])
 def test_config_copy_matches_reference(pair):
     jcfg, tcfg = pair
     for f in dataclasses.fields(tcfg):
-        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+        got, want = getattr(tcfg, f.name), getattr(jcfg, f.name)
+        if dataclasses.is_dataclass(want):   # a nested config (ssm): each copy has its class
+            got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+        assert got == want, f.name
     assert tcfg.padded_vocab == jcfg.padded_vocab
     assert tcfg.resolved_head_dim == jcfg.resolved_head_dim
 
@@ -70,7 +76,7 @@ def test_full_width_config():
             cfg.d_ff, cfg.padded_vocab) == (28, 1536, 12, 2, 128, 8960, 152064)
 
 
-@pytest.mark.parametrize("arch", ["gemma-7b", "deepseek-v2-236b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["gemma-7b", "deepseek-v2-236b", "xlstm-350m"])
 def test_registry_refuses_unported_arch(arch):
     with pytest.raises(KeyError, match="not ported"):
         treg.get(arch)
