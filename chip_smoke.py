@@ -244,6 +244,10 @@ def phase_attention(dev, name, b, sq, smax, h, kh, d, q_offset, kv_len, window,
     torch.cuda.synchronize()
     want = ref.flash_attention_ref(q, k, v, **kw)
     check(bool(torch.isfinite(got.float()).all()), f"attention {name}: non-finite output")
+    # the split-KV merge (the last block of each KV head, by atomic ticket)
+    # sums in split order: a second call gives the same bits
+    check(torch.equal(ops.flash_attention(q, k, v, **kw), got),
+          f"attention {name}: a second call on the same inputs differs")
     err = float((got.float() - want.float()).abs().max())
     check(err <= ATTENTION_TOL, f"attention {name} disagrees with its plain version: "
                                 f"max |err| {err}")
@@ -924,7 +928,9 @@ def main() -> int:
                     phase_rmsnorm(dev, 4 * 256, zcfg.d_model),
                     phase_rmsnorm(dev, 4, zcfg.d_model),
                     phase_rmsnorm(dev, 4 * 256, d_inner),
-                    phase_rmsnorm(dev, 4, d_inner)],
+                    phase_rmsnorm(dev, 4, d_inner),
+                    # the [train] phase's rows, batch x seq
+                    phase_rmsnorm(dev, TRAIN_BATCH * TRAIN_SEQ, cfg.d_model)],
         "gqa_attention": [
             phase_attention(dev, "prefill", 4, 256, 512, H, K, hd, 0, 256, None),
             phase_attention(dev, "decode", 4, 1, 512, H, K, hd, 511, 512, None),
@@ -934,6 +940,9 @@ def main() -> int:
             phase_attention(dev, "zamba2 prefill", 4, 256, 256, zH, zK, zhd, 0, 256, zwin),
             phase_attention(dev, "zamba2 decode", 4, 1, 512, zH, zK, zhd, 0, 512, None,
                             causal=False),
+            # the [train] phase: causal over the step's own keys, no cache
+            phase_attention(dev, "train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, H, K, hd, 0,
+                            TRAIN_SEQ, None),
         ],
         "ssd_scan": [
             # the serving prefill as the model hands it over (bf16 views): the main row

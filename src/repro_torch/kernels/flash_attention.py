@@ -5,7 +5,14 @@ On CUDA tensors the wrapper launches the hand-written kernel in
 ``csrc/attention.cu``, which reads K/V per KV head (no broadcast across the
 group in device memory); on CPU tensors it runs the plain version
 ``ref.flash_attention_ref``.  ``flash_attention.launches`` counts kernel
-launches.
+launches: one per call on every path.
+
+bf16 q and K/V take one of two paths: more than 16 rows (``Sq * H / K``;
+prefill, training) run on the tensor cores; up to 16 (decode) split the
+keys over several blocks, which merge their partials in the same launch.
+For those the wrapper hands the kernel f32 scratch (``torch.empty``) and a
+per-device, per-stream array of tickets that is zeroed once and that every
+launch leaves at zero.  f32 queries take the f32 FMA kernel.
 
 Where autograd needs a gradient, the launch goes through ``FlashAttentionFn``:
 forward is the kernel, backward the vector-Jacobian product of the plain
@@ -24,6 +31,10 @@ from . import _build
 from .ref import flash_attention_ref, plain_vjp
 
 HEAD_DIMS = (32, 64, 80, 128)
+# bf16 calls with at most this many rows (Sq * H / K) take the split-KV
+# kernel, which reads its scratch (csrc/attention.cu: kSplitRows)
+_SPLIT_ROWS = 16
+_SPLIT_MIN_KEYS = 32   # the shortest split (kSplitMinKeys)
 # (q dtype, kv dtype) pairs the kernel is instantiated for; the KV cache may
 # be bf16 under an f32 model, as in the reference's serving engine
 _DTYPE_PAIRS = {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
@@ -34,7 +45,8 @@ _DTYPE_PAIRS = {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16
 def _kernel():
     fn = _build.library("attention").repro_gqa_attention
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -77,6 +89,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    # the kernel loads 16 bytes at a time: a view that is not aligned is copied
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     opts = (causal, sm_scale, q_offset, window, kv_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -90,15 +104,39 @@ def _launch(q, k, v, causal, sm_scale, q_offset, window, kv_len) -> torch.Tensor
     o = torch.empty_like(q)
     if b * sq == 0:
         return o
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scratch = tickets = None
+    if q.dtype == torch.bfloat16 and sq * (h // kh) <= _SPLIT_ROWS:
+        # room for the most splits the kernel may choose, 16 records of d + 2
+        splits = -(-skv // _SPLIT_MIN_KEYS)
+        scratch = torch.empty(b * kh * splits * _SPLIT_ROWS * (d + 2), dtype=torch.float32,
+                              device=q.device)
+        tickets = _tickets(q.device, stream, b * kh)
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     b, sq, h, kh, skv, d, kv_len, q_offset,
                     0 if window is None else window, int(causal), sm_scale,
                     int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-                    q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+                    None if scratch is None else scratch.data_ptr(),
+                    None if tickets is None else tickets.data_ptr(),
+                    q.device.index, stream)
     if err:
         raise RuntimeError(f"attention kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
     return o
+
+
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The split-KV merge's tickets for launches on ``stream``: int32 zeros,
+    made once (and again, larger, when a call needs more); the kernel
+    returns each ticket it takes to zero."""
+    t = _TICKETS.get((device.index, stream))
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[(device.index, stream)] = t
+    return t
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -298,3 +298,117 @@ def test_attention_head_dim_80_matches_plain_on_card(cuda_device, b, sq, smax, q
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v, **kw).float(),
                                rtol=tol, atol=tol)
+
+
+# ---------------------------------------------- attention: the two bf16 paths
+# bf16 q and K/V with rows = Sq * H / K <= 16 take the split-KV kernel, more
+# rows the tensor-core kernel (csrc/attention.cu).  Limits as above: bf16
+# 2e-2, f32 queries 1e-4.
+
+def _attention_case(device, b, sq, smax, h, kh, d, qdtype, kvdtype, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(b, sq, h, d, device=device, generator=gen).to(qdtype)
+    k = torch.randn(b, smax, kh, d, device=device, generator=gen).to(kvdtype)
+    v = torch.randn(b, smax, kh, d, device=device, generator=gen).to(kvdtype)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,smax,h,kh,d,q_offset,kv_len,window,causal", [
+    (4, 1, 512, 12, 2, 128, 511, 512, 20, True),     # window shorter than a split
+    (4, 1, 512, 12, 2, 128, 64, 65, None, True),     # kv_len one past a split edge
+    (4, 1, 512, 12, 2, 128, 32, 33, None, True),
+    (4, 1, 512, 32, 32, 80, 0, 129, None, False),    # zamba2's ring, 129 filled slots
+    (1, 1, 16, 4, 2, 64, 9, 3, 2, True),             # the query sees no key: 0
+    (2, 2, 300, 12, 2, 128, 250, 252, None, True),   # qwen2 g = 6, Sq 2: 12 rows, split
+    (2, 3, 300, 12, 2, 128, 250, 253, None, True),   # Sq 3: 18 rows, tensor cores
+    (2, 16, 128, 32, 32, 80, 40, 56, None, True),    # zamba2 g = 1, Sq 16: split
+    (2, 17, 128, 32, 32, 80, 40, 57, None, True),    # Sq 17: tensor cores
+    (2, 16, 128, 32, 32, 80, 40, 56, 9, True),       # rows that see different keys
+])
+def test_attention_bf16_paths_match_plain_on_card(cuda_device, b, sq, smax, h, kh, d, q_offset,
+                                                 kv_len, window, causal):
+    q, k, v = _attention_case(cuda_device, b, sq, smax, h, kh, d, torch.bfloat16,
+                              torch.bfloat16)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window)
+    before = ops.launch_counts()["gqa_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gqa_attention"] == before + 1
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v, **kw).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
+@pytest.mark.parametrize("window", [None, 37])
+def test_attention_tensor_core_head_dims_on_card(cuda_device, d, window):
+    """Sq 45 and kv_len 145 are no multiples of the 64-row and 64-key tiles."""
+    q, k, v = _attention_case(cuda_device, 2, 45, 200, 8, 2, d, torch.bfloat16, torch.bfloat16,
+                              seed=d)
+    kw = dict(causal=True, q_offset=100, kv_len=145, window=window)
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v, **kw).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_attention_training_shape_on_card(cuda_device):
+    """The [train] phase's call: q [4, 512, 12, 128], causal, no cache."""
+    q, k, v = _attention_case(cuda_device, 4, 512, 512, 12, 2, 128, torch.bfloat16,
+                              torch.bfloat16)
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,q_offset,kv_len", [(1, 299, 300), (40, 10, 50)])
+def test_attention_f32_query_bf16_cache_on_card(cuda_device, sq, q_offset, kv_len):
+    """The reference engine's case: f32 queries on a bf16 cache (f32 kernel)."""
+    q, k, v = _attention_case(cuda_device, 2, sq, 320, 12, 2, 128, torch.float32,
+                              torch.bfloat16)
+    kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len)
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, **kw), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_attention_split_kv_merge_is_deterministic_on_card(cuda_device):
+    """The merge sums the splits in order, whichever block takes the last
+    ticket, and each launch leaves its tickets at 0: the same call gives the
+    same bits, also after calls of other shapes in between."""
+    q, k, v = _attention_case(cuda_device, 4, 1, 512, 12, 2, 128, torch.bfloat16,
+                              torch.bfloat16)
+    kw = dict(causal=True, q_offset=511, kv_len=512)
+    first = ops.flash_attention(q, k, v, **kw)
+    for kv_len in (33, 200, 512):
+        ops.flash_attention(q, k, v, causal=True, q_offset=kv_len - 1, kv_len=kv_len)
+    zq, zk, zv = _attention_case(cuda_device, 4, 1, 512, 32, 32, 80, torch.bfloat16,
+                                 torch.bfloat16)
+    ops.flash_attention(zq, zk, zv, causal=False, kv_len=512)
+    again = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+def test_attention_unaligned_views_are_copied_on_card(cuda_device):
+    """The kernels load 16 bytes at a time: a contiguous view that starts 8
+    bytes into its storage is copied to an aligned buffer before the launch."""
+    q, k, v = _attention_case(cuda_device, 2, 1, 64, 12, 2, 128, torch.bfloat16, torch.bfloat16)
+    views = []
+    for t in (q, k, v):
+        buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=cuda_device)
+        view = buf[4:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 8
+        views.append(view)
+    kw = dict(causal=True, q_offset=40, kv_len=41)
+    got = ops.flash_attention(*views, **kw)
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v, **kw).float(),
+                               rtol=2e-2, atol=2e-2)

@@ -178,6 +178,94 @@ def test_attention_row_with_no_visible_key_is_zero():
     assert torch.equal(out, torch.zeros_like(out))
 
 
+# ------------------------------------ the CUDA kernel's two bf16 algorithms
+# A test-local model of the arithmetic of csrc/attention.cu's bf16 paths,
+# held to the plain version where there is no card.  Split-KV (decode): the
+# visible keys [kv_lo, kv_hi) are cut into splits; each split gives per row
+# its max m, sum l and unnormalised P V in f32; the splits merge by
+# log-sum-exp, a split that shows a row no key (m = -inf) with weight 0, a
+# row with no key anywhere to 0.  The tensor-core path (prefill) is the same
+# merge done online over 64-key tiles, with P rounded to bf16 before the PV
+# product and l summed from the f32 P.
+
+def _split_kv_model(q, k, v, *, causal, q_offset, kv_len, window, split_len, p_bf16):
+    b, sq, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    kv_hi = min(kv_len, q_offset + sq) if causal else kv_len
+    kv_lo = max(0, q_offset - window + 1) if window else 0
+    qf = q.float().reshape(b, sq, kh, g, d)
+    qpos = q_offset + torch.arange(sq)[:, None]
+    ms, ls, accs = [], [], []
+    for n0 in range(kv_lo, max(kv_hi, kv_lo + 1), split_len):
+        n = torch.arange(n0, max(n0, min(n0 + split_len, kv_hi)))
+        s = torch.einsum("bqkgd,bnkd->bqkgn", qf, k[:, n].float()) / np.sqrt(d)
+        vis = n[None, :] < kv_len
+        if causal:
+            vis = vis & (n[None, :] <= qpos)
+        if window:
+            vis = vis & (qpos - n[None, :] < window)
+        s = s.masked_fill(~vis[None, :, None, None, :], -np.inf)
+        m = s.amax(-1) if len(n) else torch.full(s.shape[:-1], -np.inf)
+        p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+        pv = p.bfloat16().float() if p_bf16 else p
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bqkgn,bnkd->bqkgd", pv, v[:, n].float()))
+    m_all = torch.stack(ms).amax(0)
+    w = [torch.exp(m - torch.where(torch.isfinite(m_all), m_all, 0.0)) for m in ms]
+    l_all = sum(wi * li for wi, li in zip(w, ls))
+    acc = sum(wi[..., None] * ai for wi, ai in zip(w, accs))
+    out = torch.where((l_all > 0)[..., None], acc / l_all.clamp_min(1e-30)[..., None], 0.0)
+    return out.reshape(b, sq, h, d)
+
+
+SPLIT_CASES = [
+    # b, sq, smax, h, kh, d, q_offset, kv_len, window, causal
+    (2, 1, 40, 12, 2, 16, 39, 40, None, True),     # decode
+    (2, 1, 40, 12, 2, 16, 32, 33, None, True),     # kv_len one past a split edge
+    (2, 1, 40, 12, 2, 16, 39, 40, 3, True),        # window shorter than a split
+    (2, 1, 40, 4, 4, 16, 0, 27, None, False),      # the ring: no causal mask
+    (1, 16, 40, 4, 4, 16, 20, 30, 2, True),        # splits that show rows no key
+    (1, 3, 40, 12, 2, 16, 5, 8, 1, True),          # rows that see no key at all
+    (2, 37, 80, 4, 2, 32, 11, 48, None, True),     # prefill into a cache
+    (2, 20, 20, 6, 2, 16, 0, 20, 5, True),         # windowed prefill
+]
+
+
+@pytest.mark.parametrize("split_len", [4, 7, 64])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("p_bf16", [False, True])
+def test_kernel_algorithm_model_matches_plain(case, split_len, p_bf16):
+    """f32 P: the merge is exact up to summation order, held at the card's
+    f32 limit 1e-4 (reading 4.8e-7 over these cases).  bf16 P on bf16-valued
+    inputs: held at the card's bf16 limit 2e-2 (reading 3.1e-3)."""
+    b, sq, smax, h, kh, d, q_offset, kv_len, window, causal = case
+    rng = np.random.default_rng(sum(case[:6]) + split_len)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).bfloat16().float()
+               for s in ((b, sq, h, d), (b, smax, kh, d), (b, smax, kh, d)))
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    got = _split_kv_model(q, k, v, split_len=split_len, p_bf16=p_bf16, **kw)
+    tol = 2e-2 if p_bf16 else 1e-4
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    blind = ~ref.flash_attention_ref(q, k, v, **kw).ne(0).any(-1)   # rows with no key
+    assert torch.equal(got[blind], torch.zeros_like(got[blind]))
+
+
+def test_kernel_algorithm_model_has_fully_masked_splits():
+    """The cases above reach the merge's edges.  Query i (position 20 + i,
+    window 2, kv_len 30) sees keys 19 + i and 20 + i below 30; the visible
+    range [19, 30) falls into splits [19, 23), [23, 27), [27, 30), so the
+    last two show query 0 no key, and queries 11..15 see no key at all."""
+    q, k, v = (torch.ones(1, 16, 4, 16), torch.ones(1, 40, 4, 16), torch.ones(1, 40, 4, 16))
+    kw = dict(causal=True, q_offset=20, kv_len=30, window=2)
+    out = _split_kv_model(q, k, v, split_len=4, p_bf16=False, **kw)
+    assert torch.equal(out, ref.flash_attention_ref(q, k, v, **kw))
+    assert torch.equal(out[0, 11:], torch.zeros_like(out[0, 11:]))
+    assert torch.equal(out[0, :11], torch.ones_like(out[0, :11]))
+
+
 # ------------------------------------------------------------------ wrappers
 
 def test_wrappers_take_plain_version_on_cpu_without_counting():
