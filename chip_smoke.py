@@ -9,8 +9,10 @@ Phases, each of which must pass (any failed check raises and exits non-zero):
   3. each kernel at the main paths' shapes against its plain PyTorch version
      on the card, with the tolerance stated (bit-equality for the quantization
      kernels' wire outputs, at every bucket size the [train] phase
-     quantizes), and timed beside the plain version, one PyTorch library call
-     computing the same function where there is one, and its bound;
+     quantizes; one bf16 ulp for RMSNorm), and timed beside the plain
+     version, one PyTorch library call computing the same function where
+     there is one, its bound and the launch floor (a near-empty launch);
+     RMSNorm's two row layouts timed across row counts;
   4. qwen2-1.5b at full width cut to 2 layers: prefill logits on the card
      (kernels, bf16) against the same weights on the CPU (plain versions, f32);
   5. serving at full width: ``Engine`` over all 28 layers of qwen2-1.5b in bf16
@@ -60,6 +62,7 @@ from repro_torch.configs import qwen2_1_5b, zamba2_2_7b  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM, shard_batch  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import rmsnorm as rmsnorm_kernel  # noqa: E402
 from repro_torch.models import api as mapi  # noqa: E402
 from repro_torch.models import ssm, transformer  # noqa: E402
 from repro_torch.serve import Engine  # noqa: E402
@@ -95,9 +98,12 @@ PATH_KERNELS = {"serve": ("rmsnorm", "gqa_attention"),
                 "serve-hybrid": ("rmsnorm", "gqa_attention", "ssd_scan"),
                 "train": ("rmsnorm", "gqa_attention", "ef_quantize_bucketize")}
 
-# bf16 outputs of the kernel and of the plain version round separately from
-# the same f32 math: two bf16 ulps (2^-7 relative) on values of O(1)..O(10)
-RMSNORM_TOL = 2e-2
+# RMSNorm: the kernel and the plain version round the same f32 math to bf16
+# separately, so an element may differ by one bf16 ulp of its value, no more
+# (f32 outputs: 1e-5 relative, the summation order)
+RMSNORM_F32_RTOL = 1e-5
+# attention: bf16 outputs round separately from the same f32 math: two bf16
+# ulps (2^-7 relative) on values of O(1)..O(10)
 ATTENTION_TOL = 2e-2
 # the SSD scan against its plain version on the same inputs, elementwise
 # |got - want| <= tol * (1 + |want|) on y and on the final state: the same f32
@@ -174,6 +180,18 @@ def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def launch_floor_ms() -> float:
+    """The device time of a near-empty launch queued like the kernels' (the
+    floor under every [kernel] time)."""
+    return device_ms(lambda: torch.cuda._sleep(0))
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |v| (8 significant bits)."""
+    v = v.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(v)) - 7)
+
+
 def train_config(seed: int, steps: int = TRAIN_STEPS, compute_dtype: str = "bfloat16"
                  ) -> TrainConfig:
     """The training path's config: the compressed planned sharded sync
@@ -202,15 +220,27 @@ def train_buckets(cfg, tc: TrainConfig) -> dict[str, int]:
 
 # --------------------------------------------------------------------- phases
 
+def check_rmsnorm(got, want, what: str) -> float:
+    """bf16: every element within one bf16 ulp of the plain version's; f32:
+    within RMSNORM_F32_RTOL relative.  Returns the largest |difference|."""
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        excess = float((diff / bf16_ulp(want)).max())
+        check(excess <= 1.0, f"rmsnorm {what}: {excess} bf16 ulps from its plain version")
+    else:
+        rel = float((diff / want.float().abs().clamp_min(1e-30)).max())
+        check(rel <= RMSNORM_F32_RTOL, f"rmsnorm {what}: rel err {rel} from its plain version")
+    return float(diff.max())
+
+
 def phase_rmsnorm(dev, rows: int, d: int) -> dict:
     x = torch.randn(rows, d, device=dev).to(torch.bfloat16)
     w = (1.0 + 0.1 * torch.randn(d, device=dev))          # f32 scale, as in the model
     got = ops.rmsnorm(x, w, eps=1e-6)
     torch.cuda.synchronize()
-    want = ref.rmsnorm_ref(x, w, eps=1e-6)
-    err = float((got.float() - want.float()).abs().max())
-    check(err <= RMSNORM_TOL * max(1.0, float(want.float().abs().max())),
-          f"rmsnorm [{rows},{d}] disagrees with its plain version: max |err| {err}")
+    err = check_rmsnorm(got, ref.rmsnorm_ref(x, w, eps=1e-6), f"[{rows},{d}]")
+    check(torch.equal(ops.rmsnorm(x, w, eps=1e-6), got),
+          f"rmsnorm [{rows},{d}]: a second call on the same inputs differs")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")   # mixed-dtype weight: not the fused path
         lib = device_ms(lambda: F.rms_norm(x, (d,), w, 1e-6))
@@ -220,6 +250,25 @@ def phase_rmsnorm(dev, rows: int, d: int) -> dict:
             "plain_ms": device_ms(lambda: ref.rmsnorm_ref(x, w, eps=1e-6)),
             "library_ms": lib, "library": "torch.nn.functional.rms_norm",
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_rmsnorm_layouts(dev, widths, row_counts) -> list[dict]:
+    """The readings that set the kernel's kWideRows: device time of a block
+    per row (layout 1) against warps per row (layout 2) at each row count and
+    width, bf16 x and f32 w, each layout checked against the plain version."""
+    out = []
+    for d in widths:
+        w = 1.0 + 0.1 * torch.randn(d, device=dev)
+        for n in row_counts:
+            x = torch.randn(n, d, device=dev).to(torch.bfloat16)
+            want = ref.rmsnorm_ref(x, w, eps=1e-6)
+            row = {"rows": n, "d": d}
+            for layout, key in ((1, "block_per_row_ms"), (2, "warps_per_row_ms")):
+                check_rmsnorm(rmsnorm_kernel._launch(x, w, 1e-6, layout=layout), want,
+                              f"[{n},{d}] layout {layout}")
+                row[key] = device_ms(lambda: rmsnorm_kernel._launch(x, w, 1e-6, layout=layout))
+            out.append(row)
+    return out
 
 
 def _visible(sq: int, q_offset: int, kv_len: int, window: int | None, causal: bool,
@@ -284,18 +333,27 @@ def _ssd_inputs(dev, b, s, h, p, n, dtype, seed):
     return x, dt, a, bm, cm
 
 
-def _ssd_work(b, s, h, p, n, q, in_bytes) -> tuple[float, float]:
+def _ssd_work(b, s, h, p, n, q, in_bytes, passes=(1, 1, 1, 1)) -> tuple[float, float]:
     """(bytes, flops) the SSD scan needs: x, B, C, dt, a read once, y and the
     final state written once; per (batch, head) and chunk of qv valid rows
     the lower triangle of C·Bᵀ and of G·xbar (qv(qv+1)/2 pairs, N and P
-    deep) and the two N x P products with the state."""
+    deep) and the two N x P products with the state.  ``passes`` counts
+    each product (C·Bᵀ, G·x, C·h, Bᵀ·x) that many times, as a kernel that
+    runs it in several tensor-core passes does."""
     nbytes = in_bytes * (b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h) \
         + 4 * (b * s * h * p + b * h * n * p)
+    p_cb, p_gx, p_ch, p_bx = passes
     flops = 0.0
     for t0 in range(0, s, q):
         qv = min(q, s - t0)
-        flops += 2.0 * (qv * (qv + 1) / 2 * (n + p) + 2 * qv * n * p)
+        tri = qv * (qv + 1) / 2
+        flops += 2.0 * (tri * (n * p_cb + p * p_gx) + qv * n * p * (p_ch + p_bx))
     return nbytes, flops * b * h
+
+
+# the bf16 SSD kernel's precision scheme: C·Bᵀ in one bf16 tensor-core pass,
+# the three products with an f32 factor in two (its hi and lo bf16 parts)
+SSD_BF16_PASSES = (1, 2, 2, 2)
 
 
 def phase_ssd(dev, name, b, s, h, p, n, chunk, dtype, seed) -> dict:
@@ -315,8 +373,20 @@ def phase_ssd(dev, name, b, s, h, p, n, chunk, dtype, seed) -> dict:
     # that kept either in bf16 would give; the limit must tell it apart
     control = max(float(((w.bfloat16().float() - w).abs() / (1 + w.abs())).max())
                   for w in (want_y, want_state))
-    nbytes, flops = _ssd_work(b, s, h, p, n, min(chunk, s), dtype.itemsize)
-    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    # a second call gives the same bits (no atomics, fixed summation order)
+    for again, first in zip(ops.ssd_scan(*inputs, chunk=chunk), (y, state)):
+        check(torch.equal(again, first), f"ssd_scan {name}: a second call differs")
+    # the bound at the rate of the kernel's own arithmetic: bf16 inputs run
+    # on the tensor cores (the split products twice), f32 inputs as f32
+    # FMAs; the f32-peak figure of the first kernel is kept beside it
+    q = min(chunk, s)
+    nbytes, flops = _ssd_work(b, s, h, p, n, q, dtype.itemsize)
+    b32_ms, b32_by = bound(nbytes, flops, F32_FLOPS)
+    if dtype == torch.bfloat16:
+        _, tc_flops = _ssd_work(b, s, h, p, n, q, dtype.itemsize, SSD_BF16_PASSES)
+        b_ms, b_by = bound(nbytes, tc_flops, BF16_FLOPS)
+    else:
+        tc_flops, b_ms, b_by = flops, b32_ms, b32_by
     tname = "bf16" if dtype == torch.bfloat16 else "f32"
     return {"shape": (f"{name}: x[{b},{s},{h},{p}] B/C[{b},{s},{n}] {tname} strided views, "
                       f"chunk {min(chunk, s)}"),
@@ -324,7 +394,8 @@ def phase_ssd(dev, name, b, s, h, p, n, chunk, dtype, seed) -> dict:
             "ms": device_ms(lambda: ops.ssd_scan(*inputs, chunk=chunk)),
             "plain_ms": device_ms(lambda: ref.ssd_chunked_ref(*inputs, chunk=chunk), iters=5),
             "library_ms": None, "library": None, "bound_ms": b_ms, "bound_by": b_by,
-            "flops": flops, "bytes": nbytes}
+            "bound_f32_peak_ms": b32_ms, "bound_f32_peak_by": b32_by,
+            "flops": flops, "flops_at_kernel_precision": tc_flops, "bytes": nbytes}
 
 
 def phase_ssd_sequential(dev, seed) -> float:
@@ -614,9 +685,11 @@ def _family(name: str) -> str:
 
 
 def _trace_summary(prof, table_path: Path) -> dict:
-    """Write the profiler's table to ``table_path``; from its trace (parsed
-    in a temporary directory, it is tens of MB) the kernel count, the
-    device's busy share of the traced span, and device time by family."""
+    """Write the profiler's table to ``table_path`` and the traced kernels'
+    count and device time by full name beside it (``*.kernels.json``, for
+    diffing two runs); from its trace (parsed in a temporary directory, it
+    is tens of MB) the kernel count, the device's busy share of the traced
+    span, and device time by family."""
     table_path.parent.mkdir(parents=True, exist_ok=True)
     table_path.write_text(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
     with tempfile.TemporaryDirectory() as tmp:
@@ -626,9 +699,15 @@ def _trace_summary(prof, table_path: Path) -> dict:
     kernels = [e for e in events if e.get("cat") == "kernel"]
     span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
     families: dict[str, float] = {}
+    by_name: dict[str, list] = {}     # name -> [count, device us]
     for e in kernels:
         fam = _family(e["name"])
         families[fam] = families.get(fam, 0.0) + e["dur"] / 1e3
+        count_us = by_name.setdefault(e["name"], [0, 0.0])
+        count_us[0] += 1
+        count_us[1] += e["dur"]
+    table_path.with_suffix(".kernels.json").write_text(json.dumps(
+        dict(sorted(by_name.items(), key=lambda kv: -kv[1][1])), indent=0))
     busy = sum(e["dur"] for e in kernels)
     return {"kernels": len(kernels), "device_busy_share": busy / span, "wall_ms": span / 1e3,
             "device_ms": busy / 1e3,
@@ -920,6 +999,9 @@ def main() -> int:
     zs = zcfg.ssm
     smoke = zamba2_2_7b.SMOKE
     _, _, s_heads, _ = ssm._dims(smoke)
+    floor = launch_floor_ms()
+    log(f"[kernel] launch floor (torch.cuda._sleep(0), queued like the kernels): "
+        f"{floor * 1e3:.2f} us")
     phases = {
         "rmsnorm": [phase_rmsnorm(dev, 4 * 256, cfg.d_model),     # prefill rows B*S
                     phase_rmsnorm(dev, 4, cfg.d_model),           # decode rows
@@ -974,9 +1056,21 @@ def main() -> int:
     for name, rows in phases.items():
         for p in rows:
             lib = "none" if p["library_ms"] is None else f"{p['library_ms'] * 1e3:.2f} us"
+            b32 = (f", f32-peak bound {p['bound_f32_peak_ms'] * 1e3:.3f} us, max |err| / "
+                   f"(1 + |want|) {p['max_scaled_err']:.3g}" if "bound_f32_peak_ms" in p else "")
             log(f"[kernel] {name} {p['shape']}: max|err| {p['max_abs_err']:.3g}, "
-                f"{p['ms'] * 1e3:.2f} us (plain {p['plain_ms'] * 1e3:.2f} us, "
-                f"library {lib}, bound {p['bound_ms'] * 1e3:.3f} us by {p['bound_by']})")
+                f"{p['ms'] * 1e3:.2f} us (floor {floor * 1e3:.2f} us, plain "
+                f"{p['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+                f"{p['bound_ms'] * 1e3:.3f} us by {p['bound_by']}{b32})")
+    # the rows' layout: a block per row against warps per row, from decode
+    # to training row counts (the readings behind rmsnorm.cu's kWideRows)
+    layouts = phase_rmsnorm_layouts(dev, (cfg.d_model, zcfg.d_model, d_inner),
+                                    (1, 4, 16, 64, 132, 264, 528, 1024, 2048))
+    for r in layouts:
+        log(f"[kernel] rmsnorm layouts [{r['rows']},{r['d']}] bf16: a block per row "
+            f"{r['block_per_row_ms'] * 1e3:.2f} us, warps per row "
+            f"{r['warps_per_row_ms'] * 1e3:.2f} us")
+    log(f"[time] {time.perf_counter() - t_start:.1f} s")
 
     logits = phase_full_width_logits(dev, args.seed)
     log(f"[logits] qwen2-1.5b full width, 2 layers, 32 tokens: card bf16 vs CPU f32 "
@@ -1048,6 +1142,8 @@ def main() -> int:
                                         "library_ms")},
             "phases": rows,
         })
+    record["launch_floor_ms"] = floor
+    record["rmsnorm_layouts"] = layouts
     record["ssd_scan_vs_sequential"] = ssd_seq
     record["build_s"] = build_s
     record["wall_s"] = time.perf_counter() - t_start

@@ -14,39 +14,85 @@
 // Outputs: y [B, S, H, P] f32 and the final state [B, H, N, P] f32.
 //
 // Layouts are the model's, at rest: x [B, S, H, P], dt [B, S, H] (f32),
-// a [H] (f32), bm / cm [B, S, N] shared by every head.  x, bm and cm are f32
-// or bf16 (upcast in registers) and may be strided views with a unit last
-// stride, as the Mamba block's slices of its convolution output are; no
-// fold, transpose or copy precedes the launch.
+// a [H] (f32), bm / cm [B, S, N] shared by every head.  x, bm and cm are
+// all f32 or all bf16 and may be strided views with a unit last stride, as
+// the Mamba block's slices of its convolution output are; no fold or
+// transpose precedes the launch.
 //
-// What bounds it on the H100, and what the design does about it:
-//   * Operations.  Per chunk 2 (Q^2 N + Q^2 P + 2 Q N P) flops against
-//     Q (2N + P) input values (half of the two Q^2 terms is the causal
-//     triangle's zeros): at Q = 128, N = P = 64 that is ~6.3 MFLOP per
-//     ~100 KB (bf16), far above the card's balance point.  This first
-//     version does them with f32 FMAs from shared memory in register tiles
-//     (8 x 8 of G, 8 x 4 of y, 4 x 4 of h per thread, float4 reads along the
-//     reduced dimension), on the 16 x 16 bands of G at or below the diagonal
-//     only; mma/wgmma are later work.
-//   * The TPU's sequential grid axis over chunks becomes a loop inside one
-//     CUDA block per (b, h), so the state never leaves the SM: it lives in
-//     registers (the update) and in shared memory (the read by y).  B and C
-//     are read per batch row from the model's tensor, not broadcast to every
-//     head in device memory (x80 at full width, ops.py:60-61).  A thread
-//     issues all of its loads of a chunk before it stores any to shared
-//     memory, so the chunk's device-memory latency is paid about once.
-//   * dt is folded into G's columns and into the state update's weights
-//     (as repro/models/ssm.py:ssd_chunked does), not into a copy of x.
-//   * Ragged chunks.  The wrapper passes Q = min(chunk, S) as the reference
-//     pads to; rows past S in the last chunk are loaded as zeros (dt = 0
-//     decays nothing and B = 0 adds no state), the same values the
-//     reference's zero padding gives, without copying padded inputs.  The
-//     kernel is instantiated for 1, 2, 4 or 8 bands of 16 rows, so a short
-//     chunk (a short prompt, the smoke config's 16) computes no zero bands.
-//   * Shared memory holds B, C, x tiles [128][68], h [64][68] and
-//     G [128][144] in f32 (194 KB, one block per SM); rows are padded so the
-//     16-byte register-tile reads and the G writes hit distinct banks.  N and
-//     P below 64 run with zero columns.
+// Two kernels, chosen by the inputs' type:
+//
+// 1. bf16 x, B and C (the serving path): tensor cores.
+//    What bounds it: bytes.  The function's least time is its traffic,
+//    mostly the f32 y (at the serving prefill [4, 256, 80, 64], N = 64:
+//    37 MB, 11 us at 3.35 TB/s); its products, run on the tensor cores as
+//    below, need under half of that time at the bf16 peak.  The f32 kernel
+//    below runs them as f32 FMAs, at 4.5x its own f32-peak bound.
+//    * The chunked form is exact for any chunk length: the caller's chunk
+//      (<= 128) changes only where the plain version rounds.  The kernel
+//      walks the sequence in tiles of 64 steps whatever chunk it is given:
+//      against 128-step chunks that halves the quadratic work, and a tile's
+//      B, C and x (bf16, 27 KB) can be double-buffered.
+//    * Every product is mma.sync.m16n8k16, bf16 in, f32 accumulators, and
+//      stays within 1e-4 of the plain version (a single bf16 pass over the
+//      f32 factors reads ~2e-2 in the CPU model) with at most two
+//      passes: x, B and C are bf16 at rest, so only the f32 factor of each
+//      product is split into hi = bf16(v) and lo = bf16(v - hi):
+//        C B^T        one pass, the products exact;
+//        G x          G split (G = (C B^T) o L o dt_j, L the decay mask);
+//        C h          the carried state h split;
+//        (B o w)^T x  B o w split, w_j = exp(seg - cum_j) dt_j.
+//      tests/test_torch_kernels.py models this arithmetic on the CPU.
+//    * G stays in registers: each warp owns 16 rows of the tile and takes
+//      the 16-column blocks of C B^T at or below its diagonal one at a
+//      time; the accumulators are scaled by exp(cum_i - cum_j) dt_j (zero
+//      above the diagonal), split, and handed to the G x product as its A
+//      fragments, as the attention kernel (attention.cu) hands P from S to
+//      P V.  No Q x Q tile exists in shared memory.
+//    * The state [N, P] lives in the accumulators of the (B o w)^T x
+//      product, warp w owning state rows 16w .. 16w + 15; at the end of a
+//      tile it is written to shared memory as its hi and lo bf16 parts for
+//      the next tile's C h.  The cumulative decay is a scan that every warp
+//      runs in its own registers (lane l holds steps l and l + 32), read by
+//      shuffles, so it costs no barrier.
+//    * Filling the card: one block of 4 warps per (batch, head), 72.5 KB of
+//      shared memory (two stages of B, C, x tiles [64][72] bf16, the state's
+//      hi and lo [64][72]), at most 168 registers a thread (ptxas spills 4
+//      bytes): three blocks an SM, so the 320 blocks of the serving prefill
+//      run in one wave of 396.
+//      Consecutive blocks share a batch row, so its B and C tiles come from
+//      L2.  C B^T is computed per head (about a seventh of a tile's mma).
+//    * Overlapping the loads: tile c + 1 arrives by cp.async (16 bytes a
+//      thread; zero-filled past S and past N or P) while tile c computes.
+//    Views of the conv output are read in place when their rows are 16-byte
+//    aligned, as the Mamba block's are; the wrapper copies a view that is
+//    not.  N and P below 64 run as zero columns.
+//
+// 2. f32 x, B and C (the f32 checks, the smoke configs): the first version's
+//    kernel, unchanged: f32 FMAs from shared memory.
+//    * Operations.  Per chunk 2 (Q^2 N + Q^2 P + 2 Q N P) flops against
+//      Q (2N + P) input values (half of the two Q^2 terms is the causal
+//      triangle's zeros), on the 16 x 16 bands of G at or below the
+//      diagonal only, in register tiles (8 x 8 of G, 8 x 4 of y, 4 x 4 of h
+//      per thread, float4 reads along the reduced dimension).
+//    * The TPU's sequential grid axis over chunks becomes a loop inside one
+//      CUDA block per (b, h), so the state never leaves the SM: it lives in
+//      registers (the update) and in shared memory (the read by y).  B and C
+//      are read per batch row from the model's tensor, not broadcast to every
+//      head in device memory (x80 at full width, ops.py:60-61).  A thread
+//      issues all of its loads of a chunk before it stores any to shared
+//      memory, so the chunk's device-memory latency is paid about once.
+//    * dt is folded into G's columns and into the state update's weights
+//      (as repro/models/ssm.py:ssd_chunked does), not into a copy of x.
+//    * Ragged chunks.  The wrapper passes Q = min(chunk, S) as the reference
+//      pads to; rows past S in the last chunk are loaded as zeros (dt = 0
+//      decays nothing and B = 0 adds no state), the same values the
+//      reference's zero padding gives, without copying padded inputs.  The
+//      kernel is instantiated for 1, 2, 4 or 8 bands of 16 rows, so a short
+//      chunk (a short prompt, the smoke config's 16) computes no zero bands.
+//    * Shared memory holds B, C, x tiles [128][68], h [64][68] and
+//      G [128][144] in f32 (194 KB, one block per SM); rows are padded so the
+//      16-byte register-tile reads and the G writes hit distinct banks.  N and
+//      P below 64 run with zero columns.
 //
 // C interface (loaded with ctypes): returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for a shape the file does not take; the
@@ -62,14 +108,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int QM = 128;       // largest chunk
 constexpr int NM = 64;        // largest state dim
-constexpr int PM = 64;        // largest head dim
 constexpr int RS = 64 + 4;    // padded row of the B, C, x and h tiles (floats)
 constexpr int GS = QM + 16;   // padded row of G: the two rows a warp writes sit 16 banks apart
 
 constexpr size_t kSmemFloats = 3 * QM * RS + NM * RS + QM * GS + 4 * QM + 4;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -331,6 +375,334 @@ cudaError_t launch(const void* x, const void* dt, const void* a, const void* bm,
   return launch_nb<T, 8>(x, dt, a, bm, cm, y, hlast, batch, S, H, P, N, Q, st, stream);
 }
 
+// ------------------------------------------------- bf16: tensor cores
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcThreads = 128;   // 4 warps, 16 rows of a tile each
+constexpr int kT = 64;            // steps per tile
+constexpr int RT = 64 + 8;        // padded row of the bf16 tiles: ldmatrix rows 16 bytes apart in banks
+constexpr size_t kTcSmemBytes =
+    sizeof(bf16) * (2 * 3 * kT * RT + 2 * NM * RT) + sizeof(float) * 2 * kT;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 (or 4) bytes global -> shared; zero-filled when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int K>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(K) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+// an f32 pair (u, v) as the bf16 pairs hi and lo, hi + lo = (u, v) within 2^-16
+__device__ __forceinline__ void split2(float u, float v, uint32_t& hi, uint32_t& lo) {
+  const bf16 uh = __float2bfloat16_rn(u), vh = __float2bfloat16_rn(v);
+  hi = pack_bf16(uh, vh);
+  lo = pack_bf16(__float2bfloat16_rn(u - __bfloat162float(uh)),
+                 __float2bfloat16_rn(v - __bfloat162float(vh)));
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return make_float2(__bfloat162float(__ushort_as_bfloat16((unsigned short)(u & 0xffffu))),
+                     __bfloat162float(__ushort_as_bfloat16((unsigned short)(u >> 16))));
+}
+
+// The mma fragments (lane = 4 g + t): an A fragment (16 x 16) holds rows g
+// and g + 8 at columns 2t, 2t + 1 and 2t + 8, 2t + 9; a B fragment (16 x 8)
+// rows 2t, 2t + 1 and 2t + 8, 2t + 9 at column g; an accumulator rows g and
+// g + 8 at columns 2t, 2t + 1.  Warp w owns rows 16w .. 16w + 15 of the tile
+// (for y) and of the state (for h).
+__global__ void __launch_bounds__(kTcThreads, 3)
+ssd_scan_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ a, const bf16* __restrict__ bm,
+                   const bf16* __restrict__ cm, float* __restrict__ y,
+                   float* __restrict__ hlast, int S, int H, int P, int N, long long xsb,
+                   long long xss, long long xsh, long long dsb, long long dss, long long dsh,
+                   long long bsb, long long bss, long long csb, long long css) {
+  extern __shared__ uint4 smem_tc[];
+  bf16* tiles = reinterpret_cast<bf16*>(smem_tc);   // [2 stages][B, C, x][kT][RT]
+  bf16* Hhi = tiles + 2 * 3 * kT * RT;              // [NM][RT]  the state entering the tile
+  bf16* Hlo = Hhi + NM * RT;                        // [NM][RT]
+  float* dts = reinterpret_cast<float*>(Hlo + NM * RT);   // [2 stages][kT]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.x / H, hh = blockIdx.x % H;
+  const float av = a[hh];
+  const bf16* xb = x + b * xsb + hh * xsh;
+  const float* dtb = dt + b * dsb + hh * dsh;
+  const bf16* bb = bm + b * bsb;
+  const bf16* cb = cm + b * csb;
+  const int ntiles = (S + kT - 1) / kT;
+  const unsigned full = 0xffffffffu;
+
+  auto load = [&](int c, int st) {
+    const int t0 = c * kT, qv = min(kT, S - t0);
+    bf16* Bt = tiles + (st * 3) * kT * RT;
+    bf16* Ct = Bt + kT * RT;
+    bf16* Xt = Ct + kT * RT;
+    for (int idx = tid; idx < kT * 8; idx += kTcThreads) {
+      const int r = idx / 8, c8 = (idx % 8) * 8;
+      const long long tr = t0 + r;
+      const bool okn = r < qv && c8 < N, okp = r < qv && c8 < P;
+      cp_async16(Bt + r * RT + c8, okn ? bb + tr * bss + c8 : bb, okn);
+      cp_async16(Ct + r * RT + c8, okn ? cb + tr * css + c8 : cb, okn);
+      cp_async16(Xt + r * RT + c8, okp ? xb + tr * xss + c8 : xb, okp);
+    }
+    if (tid < kT) {
+      const bool ok = tid < qv;
+      cp_async4(dts + st * kT + tid, ok ? dtb + (t0 + tid) * dss : dtb, ok);
+    }
+  };
+
+  float hacc[8][4];   // state rows 16 warp + g (+ 8), columns 8 nt + 2t (+ 1)
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) hacc[nt][0] = hacc[nt][1] = hacc[nt][2] = hacc[nt][3] = 0.f;
+
+  load(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < ntiles; ++c) {
+    const int st = c & 1;
+    if (c + 1 < ntiles) load(c + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // tile c has landed; tile c + 1 may be in flight
+    __syncthreads();      // ... for every thread, and so has the state split at the end of c - 1
+    const bf16* Bt = tiles + (st * 3) * kT * RT;
+    const bf16* Ct = Bt + kT * RT;
+    const bf16* Xt = Ct + kT * RT;
+    const float* dtt = dts + st * kT;
+    const int t0 = c * kT, qv = min(kT, S - t0);
+
+    // cum = inclusive cumsum of dt * a over the tile, in every warp: lane l
+    // holds steps l (v0) and l + 32 (v1).  Steps past qv have dt = 0.
+    const float d0 = dtt[lane], d1 = dtt[lane + 32];
+    float v0 = d0 * av, v1 = d1 * av;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u0 = __shfl_up_sync(full, v0, off), u1 = __shfl_up_sync(full, v1, off);
+      if (lane >= off) {
+        v0 += u0;
+        v1 += u1;
+      }
+    }
+    v1 += __shfl_sync(full, v0, 31);
+    const float seg = __shfl_sync(full, v1, 31);
+    // the state update's weights w_j = exp(seg - cum_j) dt_j
+    const float w0 = expf(seg - v0) * d0, w1 = expf(seg - v1) * d1;
+
+    // ---- y rows 16 warp .. + 15: exp(cum_i) (C h)_i + (G x)_i
+    if (16 * warp < qv) {
+      const int i0 = 16 * warp + g, i1 = i0 + 8;
+      const float vsrc = warp < 2 ? v0 : v1;   // the warp's rows lie in one half
+      const float cum0 = __shfl_sync(full, vsrc, i0 % 32), cum1 = __shfl_sync(full, vsrc, i1 % 32);
+
+      uint32_t cf[4][4];   // C rows of the warp, A fragments over N
+#pragma unroll
+      for (int kd = 0; kd < 4; ++kd)
+        ldsm_x4(cf[kd], Ct + (16 * warp + lane % 16) * RT + kd * 16 + (lane / 16) * 8);
+      float yacc[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) yacc[nt][0] = yacc[nt][1] = yacc[nt][2] = yacc[nt][3] = 0.f;
+
+      if (c > 0) {   // the carried state: C (h_hi + h_lo), scaled by exp(cum_i)
+#pragma unroll
+        for (int kd = 0; kd < 4; ++kd) {
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            const int off = (kd * 16 + lane % 8 + ((lane / 8) % 2) * 8) * RT + np * 16 + (lane / 16) * 8;
+            uint32_t hb[4];
+            ldsm_x4_t(hb, Hhi + off);
+            mma_bf16(yacc[2 * np], cf[kd], hb[0], hb[1]);
+            mma_bf16(yacc[2 * np + 1], cf[kd], hb[2], hb[3]);
+            ldsm_x4_t(hb, Hlo + off);
+            mma_bf16(yacc[2 * np], cf[kd], hb[0], hb[1]);
+            mma_bf16(yacc[2 * np + 1], cf[kd], hb[2], hb[3]);
+          }
+        }
+        const float e0 = expf(cum0), e1 = expf(cum1);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          yacc[nt][0] *= e0;
+          yacc[nt][1] *= e0;
+          yacc[nt][2] *= e1;
+          yacc[nt][3] *= e1;
+        }
+      }
+
+      // the 16-step column blocks kk at or below the diagonal block
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk > warp || 16 * kk >= qv) continue;   // warp-uniform
+        float s[2][4];   // C B^T, columns 16 kk + 8 half + 2t (+ 1)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) s[half][0] = s[half][1] = s[half][2] = s[half][3] = 0.f;
+#pragma unroll
+        for (int kd = 0; kd < 4; ++kd) {
+          uint32_t kb[4];
+          ldsm_x4(kb, Bt + (kk * 16 + lane % 8 + (lane / 16) * 8) * RT + kd * 16 + ((lane / 8) % 2) * 8);
+          mma_bf16(s[0], cf[kd], kb[0], kb[1]);
+          mma_bf16(s[1], cf[kd], kb[2], kb[3]);
+        }
+        // G = (C B^T) o exp(cum_i - cum_j) o dt_j for j <= i, split into the
+        // A fragments of the G x product (exp only where j <= i: there
+        // cum_i - cum_j <= 0)
+        const float csrc = kk < 2 ? v0 : v1, dsrc = kk < 2 ? d0 : d1;
+        uint32_t ghi[4], glo[4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int j = 16 * kk + 8 * half + 2 * t;
+          const float cj0 = __shfl_sync(full, csrc, j % 32), cj1 = __shfl_sync(full, csrc, (j + 1) % 32);
+          const float dj0 = __shfl_sync(full, dsrc, j % 32), dj1 = __shfl_sync(full, dsrc, (j + 1) % 32);
+          const float g00 = j <= i0 ? s[half][0] * expf(cum0 - cj0) * dj0 : 0.f;
+          const float g01 = j + 1 <= i0 ? s[half][1] * expf(cum0 - cj1) * dj1 : 0.f;
+          const float g10 = j <= i1 ? s[half][2] * expf(cum1 - cj0) * dj0 : 0.f;
+          const float g11 = j + 1 <= i1 ? s[half][3] * expf(cum1 - cj1) * dj1 : 0.f;
+          split2(g00, g01, ghi[2 * half], glo[2 * half]);
+          split2(g10, g11, ghi[2 * half + 1], glo[2 * half + 1]);
+        }
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t xf[4];
+          ldsm_x4_t(xf, Xt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * RT + np * 16 + (lane / 16) * 8);
+          mma_bf16(yacc[2 * np], ghi, xf[0], xf[1]);
+          mma_bf16(yacc[2 * np + 1], ghi, xf[2], xf[3]);
+          mma_bf16(yacc[2 * np], glo, xf[0], xf[1]);
+          mma_bf16(yacc[2 * np + 1], glo, xf[2], xf[3]);
+        }
+      }
+
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int p = 8 * nt + 2 * t;
+        if (8 * nt >= P) continue;
+        if (i0 < qv)
+          *reinterpret_cast<float2*>(y + (((size_t)b * S + t0 + i0) * H + hh) * P + p) =
+              make_float2(yacc[nt][0], yacc[nt][1]);
+        if (i1 < qv)
+          *reinterpret_cast<float2*>(y + (((size_t)b * S + t0 + i1) * H + hh) * P + p) =
+              make_float2(yacc[nt][2], yacc[nt][3]);
+      }
+    }
+
+    // ---- state rows 16 warp .. + 15: h <- exp(seg) h + (B o w)^T x
+    {
+      const float eseg = expf(seg);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        hacc[nt][0] *= eseg;
+        hacc[nt][1] *= eseg;
+        hacc[nt][2] *= eseg;
+        hacc[nt][3] *= eseg;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (16 * kk >= qv) continue;   // block-uniform
+        // A = B^T (rows n, columns j), from B [j][n] by a transposing ldmatrix
+        uint32_t ab[4];
+        ldsm_x4_t(ab, Bt + (kk * 16 + lane % 8 + (lane / 16) * 8) * RT + 16 * warp + ((lane / 8) % 2) * 8);
+        const float wsrc = kk < 2 ? w0 : w1;
+        const int j = 16 * kk + 2 * t;
+        const float wa = __shfl_sync(full, wsrc, j % 32), wb = __shfl_sync(full, wsrc, (j + 1) % 32);
+        const float wc = __shfl_sync(full, wsrc, (j + 8) % 32), wd = __shfl_sync(full, wsrc, (j + 9) % 32);
+        uint32_t ahi[4], alo[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float2 f = unpack_bf16(ab[r]);
+          split2(f.x * (r < 2 ? wa : wc), f.y * (r < 2 ? wb : wd), ahi[r], alo[r]);
+        }
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t xf[4];
+          ldsm_x4_t(xf, Xt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * RT + np * 16 + (lane / 16) * 8);
+          mma_bf16(hacc[2 * np], ahi, xf[0], xf[1]);
+          mma_bf16(hacc[2 * np + 1], ahi, xf[2], xf[3]);
+          mma_bf16(hacc[2 * np], alo, xf[0], xf[1]);
+          mma_bf16(hacc[2 * np + 1], alo, xf[2], xf[3]);
+        }
+      }
+    }
+
+    __syncthreads();   // every warp is done with this stage and with Hhi / Hlo
+    if (c + 1 < ntiles) {   // the state entering tile c + 1, split for its C h
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int r0 = 16 * warp + g, p = 8 * nt + 2 * t;
+        uint32_t hi, lo;
+        split2(hacc[nt][0], hacc[nt][1], hi, lo);
+        *reinterpret_cast<uint32_t*>(Hhi + r0 * RT + p) = hi;
+        *reinterpret_cast<uint32_t*>(Hlo + r0 * RT + p) = lo;
+        split2(hacc[nt][2], hacc[nt][3], hi, lo);
+        *reinterpret_cast<uint32_t*>(Hhi + (r0 + 8) * RT + p) = hi;
+        *reinterpret_cast<uint32_t*>(Hlo + (r0 + 8) * RT + p) = lo;
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int n0 = 16 * warp + g, p = 8 * nt + 2 * t;
+    if (8 * nt >= P) continue;
+    if (n0 < N)
+      *reinterpret_cast<float2*>(hlast + (((size_t)b * H + hh) * N + n0) * P + p) =
+          make_float2(hacc[nt][0], hacc[nt][1]);
+    if (n0 + 8 < N)
+      *reinterpret_cast<float2*>(hlast + (((size_t)b * H + hh) * N + n0 + 8) * P + p) =
+          make_float2(hacc[nt][2], hacc[nt][3]);
+  }
+}
+
+cudaError_t launch_tc(const void* x, const void* dt, const void* a, const void* bm,
+                      const void* cm, void* y, void* hlast, int batch, int S, int H, int P,
+                      int N, const long long* st, cudaStream_t stream) {
+  auto kernel = ssd_scan_tc_kernel;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kTcSmemBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<batch * H, kTcThreads, kTcSmemBytes, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(a),
+      static_cast<const bf16*>(bm), static_cast<const bf16*>(cm), static_cast<float*>(y),
+      static_cast<float*>(hlast), S, H, P, N, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], st[9]);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x [batch, s, h, p] with strides (xsb, xss, xsh, 1); dt [batch, s, h] f32
@@ -351,8 +723,8 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* a, cons
   if (err != cudaSuccess) return (int)err;
   const long long st[10] = {xsb, xss, xsh, dsb, dss, dsh, bsb, bss, csb, css};
   cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
-  if (in_bf16)
-    err = launch<__nv_bfloat16>(x, dt, a, bm, cm, y, hlast, batch, s, h, p, n, q, st, stream_);
+  if (in_bf16)   // the tensor-core kernel walks 64-step tiles whatever the chunk
+    err = launch_tc(x, dt, a, bm, cm, y, hlast, batch, s, h, p, n, st, stream_);
   else
     err = launch<float>(x, dt, a, bm, cm, y, hlast, batch, s, h, p, n, q, st, stream_);
   return (int)err;

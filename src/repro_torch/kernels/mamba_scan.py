@@ -4,8 +4,11 @@ with the head fold of ``repro/kernels/ops.py:ssd_scan``.
 On CUDA tensors the wrapper launches the hand-written kernel in
 ``csrc/ssd.cu``, which reads B and C once per batch row (no broadcast across
 the heads in device memory) and returns the final state beside ``y``, as
-the model's ``ssd_chunked`` does; on CPU tensors it runs the plain version
-``ref.ssd_chunked_ref``.  ``ssd_scan.launches`` counts kernel launches.
+the model's ``ssd_chunked`` does: bf16 inputs go to the tensor cores
+(64-step tiles, the f32 factor of each product split into two bf16
+parts), f32 inputs to the f32 FMA kernel.  On CPU tensors it runs the plain
+version ``ref.ssd_chunked_ref``.  ``ssd_scan.launches`` counts kernel
+launches.
 
 Where autograd needs a gradient, the launch goes through ``SSDScanFn``:
 forward is the kernel, backward the vector-Jacobian product of the plain
@@ -78,7 +81,18 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bm: torch.Tenso
     return _launch(x, dt, a, bm, cm, chunk)
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Whether every row of ``t`` (its last dimension) starts on 16 bytes."""
+    return t.data_ptr() % 16 == 0 and all(st * t.element_size() % 16 == 0
+                                          for st in t.stride()[:-1])
+
+
 def _launch(x, dt, a, bm, cm, chunk):
+    if x.dtype == torch.bfloat16:
+        # the tensor-core kernel copies rows as 16-byte vectors: a view whose
+        # rows are not aligned so (not the Mamba block's) is copied first
+        x, bm, cm = (t if _rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
+                     for t in (x, bm, cm))
     b, s, h, p = x.shape
     n = bm.shape[-1]
     y = torch.empty(b, s, h, p, device=x.device, dtype=torch.float32)

@@ -29,7 +29,7 @@ def _kernel():
     fn = _build.library("rmsnorm").repro_rmsnorm
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+                                           ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -55,14 +55,17 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Ten
     return _launch(x, w, eps)
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+def _launch(x: torch.Tensor, w: torch.Tensor, eps: float, layout: int = 0) -> torch.Tensor:
+    """One launch.  ``layout`` 0 lets the kernel pick the rows' layout by
+    their count; 1 (a block per row) and 2 (warps per row) force one, for the
+    readings that set the kernel's threshold (``chip_smoke.py``)."""
     d = x.shape[-1]
     y = torch.empty_like(x)
     n = x.numel() // d if d else 0
     if n == 0:
         return y
     err = _kernel()(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, d, eps,
-                    _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], x.device.index,
+                    _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], layout, x.device.index,
                     torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"rmsnorm kernel launch failed with CUDA error {err}")

@@ -40,6 +40,72 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda_device, shape, dtype, wdtype)
     torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(), rtol=tol, atol=tol)
 
 
+def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |v| (8 significant bits)."""
+    v = v.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(v)) - 7)
+
+
+def _assert_rmsnorm_close(got, want):
+    """bf16: within one bf16 ulp of the plain version per element (the same
+    f32 math rounds once on each side); f32: within 1e-5 relative."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.bfloat16:
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= _bf16_ulp(want)).all()), float((diff / _bf16_ulp(want)).max())
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+# rows 1, the decode rows 4 and either side of the kernel's 132-row threshold
+# (a block per row up to it, warps per row above), a prefill; the models'
+# widths, one that is not a multiple of the 16-byte vector, and either side
+# of the widest row held in registers (3,072 vectors: 24,576 bf16 values)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4, 132, 133, 1024])
+@pytest.mark.parametrize("d", [1536, 2560, 5120, 1000 + 3, 24576, 24576 + 8])
+@pytest.mark.parametrize("dtype,wdtype", [(torch.bfloat16, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16),
+                                          (torch.float32, torch.float32),
+                                          (torch.float32, torch.bfloat16)])
+def test_rmsnorm_kernel_within_one_ulp_on_card(cuda_device, n, d, dtype, wdtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(n * 7 + d)
+    x = torch.randn(n, d, device=cuda_device, generator=gen).to(dtype)
+    w = (1.0 + 0.1 * torch.randn(d, device=cuda_device, generator=gen)).to(wdtype)
+    before = ops.launch_counts()["rmsnorm"]
+    got = ops.rmsnorm(x, w)
+    again = ops.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rmsnorm"] == before + 2
+    assert torch.equal(got, again)
+    _assert_rmsnorm_close(got, ref.rmsnorm_ref(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [1, 2])
+@pytest.mark.parametrize("n,d", [(4, 1536), (1024, 2560), (200, 5120), (3, 128), (70, 256)])
+def test_rmsnorm_both_row_layouts_on_card(cuda_device, layout, n, d):
+    """A block per row (1) and warps per row (2) at any row count; both sum
+    in one order (each lane's running sum over vectors l, l + 32, ..., then
+    a butterfly), so they agree to the bit with the kernel's own choice."""
+    from repro_torch.kernels import rmsnorm as rms
+    x = torch.randn(n, d, device=cuda_device).to(torch.bfloat16)
+    w = 1.0 + 0.1 * torch.randn(d, device=cuda_device)
+    got = rms._launch(x, w, 1e-6, layout=layout)
+    _assert_rmsnorm_close(got, ref.rmsnorm_ref(x, w))
+    assert torch.equal(got, rms._launch(x, w, 1e-6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_unaligned_view_on_card(cuda_device, dtype):
+    """A view that starts 2 or 4 bytes into its storage takes the generic
+    kernel; w a view as well."""
+    x = torch.randn(4 * 1536 + 1, device=cuda_device).to(dtype)[1:].view(4, 1536)
+    w = torch.randn(1537, device=cuda_device)[1:]
+    _assert_rmsnorm_close(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,smax,h,kh,d,q_offset,kv_len,window", [
     (4, 256, 256, 12, 2, 128, 0, 256, None),    # prefill
@@ -275,6 +341,67 @@ def test_ssd_scan_gradient_through_kernel_on_card(cuda_device):
     want = torch.autograd.grad(ref.ssd_chunked_ref(*inputs, chunk=16), inputs, (gy, gs))
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# The tensor-core kernel (bf16 inputs): every head and state dim, chunks that
+# divide its 64-step tiles and chunks that do not, ragged S, strided views of
+# one conv output; against the chunked plain version at the caller's chunk and
+# the sequential recurrence, and two calls bit-equal.
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [16, 32, 64])
+@pytest.mark.parametrize("n", [16, 32, 64])
+def test_ssd_scan_bf16_dims_on_card(cuda_device, p, n):
+    inputs = _ssd_inputs(cuda_device, 2, 150, 3, p, n, torch.bfloat16, True)
+    y, state = ops.ssd_scan(*inputs, chunk=128)
+    torch.cuda.synchronize()
+    for got, want in zip((y, state), ref.ssd_chunked_ref(*inputs, chunk=128)):
+        torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+    for got, want in zip((y, state), ref.ssd_ref(*inputs)):
+        torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [16, 17, 64, 128])
+@pytest.mark.parametrize("s", [256, 200, 63, 1])
+def test_ssd_scan_bf16_chunks_on_card(cuda_device, chunk, s):
+    inputs = _ssd_inputs(cuda_device, 2, s, 4, 64, 64, torch.bfloat16, True)
+    before = ops.launch_counts()["ssd_scan"]
+    got = ops.ssd_scan(*inputs, chunk=chunk)
+    again = ops.ssd_scan(*inputs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for g, w in zip(got, ref.ssd_chunked_ref(*inputs, chunk=chunk)):
+        torch.testing.assert_close(g, w, rtol=SSD_TOL, atol=SSD_TOL)
+    for g, w in zip(got, ref.ssd_ref(*inputs)):
+        torch.testing.assert_close(g, w, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bf16_serving_prefill_on_card(cuda_device):
+    """The serving prefill [4, 256, 80, 64] as the Mamba block hands it over."""
+    inputs = _ssd_inputs(cuda_device, 4, 256, 80, 64, 64, torch.bfloat16, True)
+    got = ops.ssd_scan(*inputs, chunk=128)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ref.ssd_chunked_ref(*inputs, chunk=128)):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bf16_unaligned_views_are_copied_on_card(cuda_device):
+    """Rows that do not start on 16 bytes (a conv output one value wider)
+    are copied before the launch; the result is the same function."""
+    b, s, h, p, n = 2, 70, 3, 32, 16
+    conv = torch.randn(b, s, h * p + 2 * n + 1, device=cuda_device).to(torch.bfloat16)
+    x = conv[..., 1:1 + h * p].reshape(b, s, h, p)
+    bm, cm = conv[..., 1 + h * p:1 + h * p + n], conv[..., 1 + h * p + n:]
+    dt = torch.rand(b, s, h, device=cuda_device) * 0.19 + 0.01
+    a = -(torch.rand(h, device=cuda_device) * 1.5 + 0.5)
+    got = ops.ssd_scan(x, dt, a, bm, cm, chunk=32)
+    for g, w in zip(got, ref.ssd_chunked_ref(x, dt, a, bm, cm, chunk=32)):
+        torch.testing.assert_close(g, w, rtol=SSD_TOL, atol=SSD_TOL)
 
 
 # zamba2's shared block: head_dim 80, MHA (H = K = 32); decode reads the ring

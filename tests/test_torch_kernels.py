@@ -266,6 +266,109 @@ def test_kernel_algorithm_model_has_fully_masked_splits():
     assert torch.equal(out[0, :11], torch.ones_like(out[0, :11]))
 
 
+# ------------------------------------------------ ssd scan: the kernel's arithmetic
+# A model of the tensor-core SSD kernel (csrc/ssd.cu, bf16 inputs): the
+# sequence in 64-step tiles whatever the caller's chunk, the state carried in
+# f32 between tiles, and every product as bf16 tensor-core passes with f32
+# accumulation.  x, B and C are bf16 at rest, so C B^T takes one pass with
+# exact products; the f32 factor of each other product (G, the carried state
+# h, B o w) is split into hi = bf16(v) and lo = bf16(v - hi), one pass each.
+# Held, like the kernel on the card, within SSD_TOL of the plain version:
+# |err| <= SSD_TOL * (1 + |want|) on y and on the final state.
+
+SSD_TOL = 1e-4        # chip_smoke.py and tests/test_torch_cuda.py hold the kernel to it
+SSD_TILE = 64
+
+
+def _split_bf16(v, pieces):
+    """v as ``pieces`` bf16-valued parts whose sum approximates it."""
+    parts = []
+    for _ in range(pieces):
+        part = v.bfloat16().float()
+        parts.append(part)
+        v = v - part
+    return parts
+
+
+def _ssd_tile_model(x, dt, a, bm, cm, *, pieces):
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    causal = torch.tril(torch.ones(SSD_TILE, SSD_TILE, dtype=torch.bool))
+    state = torch.zeros(b, h, n, p)
+    ys = []
+    for t0 in range(0, s, SSD_TILE):
+        qv = min(SSD_TILE, s - t0)
+        # rows past S are zeros, as the kernel's zero-filled copies give
+        xs, dts, bs, cs = (torch.nn.functional.pad(
+            t[:, t0:t0 + qv], (0, 0) * (t.dim() - 2) + (0, SSD_TILE - qv))
+            for t in (x, dt, bm, cm))
+        cum = torch.cumsum(dts * a, dim=1)                               # [B,T,H]
+        seg = cum[:, -1]                                                 # [B,H]
+        cb = torch.einsum("bin,bjn->bij", cs, bs)                        # exact products
+        li = (cum[:, :, None] - cum[:, None]).masked_fill(~causal[None, :, :, None], -np.inf)
+        g = cb[..., None] * torch.exp(li) * dts[:, None]                 # [B,i,j,H]
+        y = sum(torch.einsum("bin,bhnp->bihp", cs, hp) for hp in _split_bf16(state, pieces))
+        y = y * torch.exp(cum)[..., None]
+        y = y + sum(torch.einsum("bijh,bjhp->bihp", gp, xs) for gp in _split_bf16(g, pieces))
+        bw = bs[..., None] * (torch.exp(seg[:, None] - cum) * dts)[:, :, None]   # [B,j,N,H]
+        state = state * torch.exp(seg)[..., None, None] + sum(
+            torch.einsum("bjnh,bjhp->bhnp", ap, xs) for ap in _split_bf16(bw, pieces))
+        ys.append(y[:, :qv])
+    return torch.cat(ys, dim=1), state
+
+
+def _ssd_bf16_inputs(b, s, h, p, n, seed):
+    """x, B, C bf16-valued (one conv output, as the Mamba block hands them
+    over), dt and a f32, in the ranges chip_smoke.py uses."""
+    rng = np.random.default_rng(seed)
+    conv = torch.from_numpy(rng.normal(size=(b, s, h * p + 2 * n)).astype(np.float32))
+    conv = conv.bfloat16().float()
+    x = conv[..., :h * p].reshape(b, s, h, p)
+    bm, cm = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+    dt = torch.from_numpy(rng.random((b, s, h)).astype(np.float32)) * 0.19 + 0.01
+    a = -(torch.from_numpy(rng.random(h).astype(np.float32)) * 1.5 + 0.5)
+    return x, dt, a, bm, cm
+
+
+def _ssd_scaled_err(got, want):
+    return max(float(((g - w).abs() / (1 + w.abs())).max()) for g, w in zip(got, want))
+
+
+SSD_MODEL_CASES = [
+    # b, s, h, p, n, chunk
+    (2, 256, 6, 64, 64, 128),     # the serving prefill's widths, four tiles
+    (2, 200, 4, 64, 64, 128),     # a ragged last tile
+    (2, 37, 3, 32, 16, 16),       # shorter than a tile; the smoke widths
+    (1, 150, 3, 16, 32, 17),      # a chunk that is not a tile's divisor
+    (2, 130, 3, 64, 32, 64),
+    (1, 64, 2, 16, 64, 128),      # exactly one tile
+]
+
+
+@pytest.mark.parametrize("case", SSD_MODEL_CASES)
+def test_ssd_kernel_arithmetic_model_matches_plain(case):
+    """Two bf16 parts per f32 factor: within SSD_TOL of the chunked plain
+    version at the caller's chunk and of the sequential recurrence (readings
+    1.3e-5..3.3e-5 over these cases; 4.8e-5 at the full serving prefill
+    [4, 256, 80, 64])."""
+    b, s, h, p, n, chunk = case
+    inputs = _ssd_bf16_inputs(b, s, h, p, n, seed=sum(case))
+    got = _ssd_tile_model(*inputs, pieces=2)
+    assert got[0].shape == (b, s, h, p) and got[1].shape == (b, h, n, p)
+    assert _ssd_scaled_err(got, ref.ssd_chunked_ref(*inputs, chunk=chunk)) <= SSD_TOL
+    assert _ssd_scaled_err(got, ref.ssd_ref(*inputs)) <= SSD_TOL
+
+
+@pytest.mark.parametrize("case", SSD_MODEL_CASES[:2])
+def test_ssd_kernel_arithmetic_control_fails(case):
+    """One bf16 pass over each f32 factor (no lo part) reads 1.5e-2..2.1e-2
+    here, over SSD_TOL: the limit tells a single pass from the split."""
+    b, s, h, p, n, chunk = case
+    inputs = _ssd_bf16_inputs(b, s, h, p, n, seed=sum(case))
+    got = _ssd_tile_model(*inputs, pieces=1)
+    assert _ssd_scaled_err(got, ref.ssd_chunked_ref(*inputs, chunk=chunk)) > 10 * SSD_TOL
+
+
 # ------------------------------------------------------------------ wrappers
 
 def test_wrappers_take_plain_version_on_cpu_without_counting():
